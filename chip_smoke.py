@@ -5,7 +5,7 @@
 
 Phases, each printed as it runs; any failure exits non-zero:
 
-1. the card's name and power limit, then both kernels built from
+1. the card's name and power limit, then the four kernels built from
    ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started together);
 2. the flash prefill kernel held against its plain version at CSM-1B prefill
    shapes (B = 1 and 8 in bf16 and B = 8 in fp32, S = 256, T = 384, 32/8
@@ -14,14 +14,25 @@ Phases, each printed as it runs; any failure exits non-zero:
    full CSM-1B width (B = 1 and 8, W = 256, partly valid window): the full
    step, then one layer at a time in three stages, with the plain version
    short of one rounding point as controls that the gates must catch;
-4. end to end on a random CSM-1B model in bf16 (seed 0): a
+4. the int8 backbone decode-step kernel against its plain version (B = 1, 8
+   and 32, W = 256), with the plain version on unrounded f32 operands as the
+   control;
+5. the fused codebook-loop kernel against its plain version at CSM-1B
+   decoder width (B = 1, 8 and 32; bf16 and int8 head; greedy and sampled at
+   temperature 0.8, top-k 50), teacher-forced on the plain version's tokens:
+   logit gates, every draw bit-equal to the plain sampler on the kernel's own
+   logits, and the f32-operand control;
+6. end to end on a random CSM-1B model in bf16 (seed 0): a
    ``save_pretrained`` -> ``from_pretrained`` round trip, then greedy
-   ``generate`` from a 64-frame prompt for 32 frames, plain at B = 1 and 8 and
-   ``exact()`` at B = 1 and 8, with the launch counters read around each run
-   (frames/s, time to the first frame, time per later frame); a
-   ``torch.profiler`` breakdown of an 8-frame ``exact()`` run at B = 1 and 8;
-   then the committed tiny golden fixture on the card, in fp32 through the
-   flash kernel, against its frozen reference tokens.
+   ``generate`` from a 64-frame prompt for 16 frames: plain at B = 1 and 8,
+   ``exact()`` at B = 1 and 8 and ``quantize()`` at B = 1, 8 and 32, with the
+   launch counters read around each run (frames/s, time to the first frame,
+   time per later frame); the speculative tier's rounds per frame and its
+   fixed point (the verify pass returns every frame unchanged); a
+   ``torch.profiler`` breakdown of 8-frame ``quantize()`` runs at B = 1 and 8
+   and an ``exact()`` run at B = 1; then the committed tiny golden fixture on
+   the card, in fp32 through the flash kernel, against its frozen reference
+   tokens.
 
 The full record of the run goes to ``chiprun_out/chip_smoke.json``.
 
@@ -45,6 +56,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # tensor cores; fp32 outside them.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 OUT_DIR = os.path.join(REPO, "chiprun_out")
+KERNELS = ("flash_fwd", "bb_decode", "bb_decode_q", "fused_decoder")
 
 
 FAILURES = []
@@ -313,13 +325,281 @@ def check_bb(qsb, config, B: int, gen):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: end to end
+# Phase 4: int8 backbone decode-step kernel
+# ---------------------------------------------------------------------------
+
+# Kernel and plain version do the same f32 arithmetic in another summation
+# order.  That moves a bf16-rounded value (a product's operand, a
+# probability, a K/V row, a logit) now and then across a rounding boundary,
+# and on random weights every later product carries the flip on: over the 16
+# layers of a step two correct evaluations drift apart (the plain version
+# summed in f64 shows how far).  So the full step gets a gross gate only
+# (relative RMS of the normed hidden and the logits), and the fine gates run
+# one layer at a time, fed the plain version's residual: share of bf16 values
+# differing at all (new K/V, logits), relative RMS of the f32 normed hidden,
+# max over layers, limits set from the readings in PERF.md.  The control,
+# the plain version with f32 product operands (``act=float32``), must break
+# at least one fine limit.
+BBQ_STEP_TOL = 5e-2
+BBQ_LAYER_LIMITS = {"normed_h rel RMS": 2e-3, "c0_logits share differing": 0.5,
+                    "new_k share differing": 0.02, "new_v share differing": 0.02}
+
+
+def _bbq_readings(got, ref) -> dict:
+    nh, lg, k, v = got
+    return {"normed_h rel RMS": rel_rms(nh.float(), ref[0].float()),
+            "c0_logits share differing": share_differing(lg, ref[1]),
+            "new_k share differing": share_differing(k, ref[2]),
+            "new_v share differing": share_differing(v, ref[3])}
+
+
+def perturbed_norms(params: dict, gen) -> dict:
+    """``params`` with backbone and decoder norm weights away from their init
+    of 1 (bf16-valued), so that folding them into the int8 weights shows."""
+    import torch
+
+    def jitter(w):
+        return (w.float() + 0.1 * torch.randn(w.shape, generator=gen, device=w.device)).to(w.dtype)
+
+    out = dict(params)
+    for stack in ("backbone", "decoder"):
+        layers = {k: (jitter(v) if k.endswith("_norm") else v)
+                  for k, v in params[stack]["layers"].items()}
+        out[stack] = {"layers": layers, "final_norm": jitter(params[stack]["final_norm"])}
+    return out
+
+
+def one_layer(bundle: dict, l: int) -> dict:
+    """A bundle holding only layer ``l`` of its stacked int8 weights."""
+    out = dict(bundle)
+    for part in ("w", "s"):
+        out[part] = {k: (v if k == "head" else v[l:l + 1]) for k, v in bundle[part].items()}
+    return out
+
+
+def check_bbq(qsb, config, B: int, gen):
+    import torch
+
+    from csm_tpu_torch.ops.bb_kernel import (
+        bb_decode_step_q, bb_decode_step_q_reference, bbq_layer_reference,
+    )
+    from csm_tpu_torch.ops.rope import compute_rope_table, gather_rope
+
+    bc = config.backbone
+    W, dev = 256, "cuda"
+    L, D, nkv, hd = bc.num_hidden_layers, bc.hidden_size, bc.num_key_value_heads, bc.head_dim
+    nq, Va = bc.num_attention_heads, config.audio_vocab_size
+    h0 = (0.11 * torch.randn((B, D), generator=gen, device=dev)).bfloat16().float()
+    pos = torch.arange(B, device=dev) + 200
+    cos, sin = gather_rope(compute_rope_table(bc, config.max_seq_len, torch.device(dev)), pos)
+    valid = torch.rand((B, W), generator=gen, device=dev) < 0.7
+    valid[:, 200:] = False
+    bias = torch.where(valid, 0.0, -1e9).float()
+    shape = (L, B, W, nkv, hd)
+    kc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    args = (qsb, config, h0, cos, sin, bias, kc, vc)
+    out = bb_decode_step_q(*args)
+    ref = bb_decode_step_q_reference(*args)
+    wit = bb_decode_step_q_reference(*args, acc=torch.float64)
+    ctl = bb_decode_step_q_reference(*args, act=torch.float32)
+    torch.cuda.synchronize()
+    full = {}
+    for i, name in ((0, "normed_h"), (1, "c0_logits")):
+        full[name] = dict(kernel=rel_rms(out[i].float(), ref[i].float()),
+                          f64=rel_rms(wit[i].float(), ref[i].float()),
+                          control=rel_rms(ctl[i].float(), ref[i].float()))
+        log(f"bbq B={B} W={W} full step {name} relative RMS vs plain: kernel "
+            f"{full[name]['kernel']:.3e}, plain summed in f64 {full[name]['f64']:.3e}, control "
+            f"{full[name]['control']:.3e} (gross limit {BBQ_STEP_TOL})")
+        check(bool(torch.isfinite(out[i]).all()) and full[name]["kernel"] <= BBQ_STEP_TOL,
+              f"bbq B={B} full step {name}: relative RMS {full[name]['kernel']:.3e}")
+    agree = (out[1].argmax(-1) == ref[1].argmax(-1)).float().mean().item()
+    log(f"bbq B={B}: c0 argmax agreement kernel vs plain {agree:.3f} (reported, not gated)")
+
+    kern, f64, ctl1 = ({k: 0.0 for k in BBQ_LAYER_LIMITS} for _ in range(3))
+    h = h0
+    for l in range(L):
+        a1 = (one_layer(qsb, l), config, h, cos, sin, bias, kc[l:l + 1], vc[l:l + 1])
+        r1 = bb_decode_step_q_reference(*a1)
+        for acc_d, got in ((kern, bb_decode_step_q(*a1)),
+                           (f64, bb_decode_step_q_reference(*a1, acc=torch.float64)),
+                           (ctl1, bb_decode_step_q_reference(*a1, act=torch.float32))):
+            for k, x in _bbq_readings(got, r1).items():
+                acc_d[k] = max(acc_d[k], x)
+        h, _, _ = bbq_layer_reference(qsb, config, l, h, cos, sin, bias, kc[l], vc[l])
+    log(f"bbq B={B} one layer at a time (max over {L} layers): kernel / plain summed in f64 / "
+        "control / limit")
+    for k, lim in BBQ_LAYER_LIMITS.items():
+        log(f"  {k}: {kern[k]:.3e} / {f64[k]:.3e} / {ctl1[k]:.3e} / {lim:g}")
+        check(kern[k] <= lim, f"bbq B={B} one layer {k}: {kern[k]:.3e} > {lim}")
+    broken = [k for k, lim in BBQ_LAYER_LIMITS.items() if ctl1[k] > lim]
+    check(bool(broken), f"bbq B={B}: the one-layer limits do not see the f32-operand control")
+
+    ms = cuda_ms(lambda: bb_decode_step_q(*args), iters=20)
+    plain_ms = cuda_ms(lambda: bb_decode_step_q_reference(*args), iters=3, warmup=1)
+    usable = int((bias >= 0).sum())
+    w, sc = qsb["w"], qsb["s"]
+    mats = [w[k] for k in ("wqkv", "wo", "w_gu", "w_down")]
+    w_bytes = (nbytes(*mats, *(sc[k] for k in ("wqkv", "wo", "w_gu", "w_down")), qsb["final_norm"])
+               + D * Va * w["head"].element_size() + Va * sc["head"].element_size())
+    kv_bytes = 2 * L * usable * nkv * hd * kc.element_size()
+    io_bytes = nbytes(h0, cos, sin, bias, *out) + kv_bytes
+    n_flops = 2 * B * (sum(m.numel() for m in mats) + D * Va) + 4 * hd * nq * L * (usable + B)
+    b_ms, by = bound_ms(w_bytes + io_bytes, n_flops)
+    log(f"bbq B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+        f"weights {w_bytes / 1e9:.4f} GB")
+    return dict(err=max((a.float() - r.float()).abs().max().item() for a, r in zip(out, ref)),
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+                shape=f"B={B} W={W} CSM-1B backbone int8", full_step=full,
+                one_layer=dict(kernel=kern, f64=f64, control=ctl1))
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: fused codebook-loop kernel
+# ---------------------------------------------------------------------------
+
+# Teacher-forced on the plain version's tokens, kernel and plain version
+# compute each codebook's logits from the same prefix, in another f32
+# summation order.  As in phase 4, a bf16 rounding flip is carried on through
+# the decoder's layers and, through the K/V scratch, the later passes: at full
+# depth two correct evaluations differ in many bf16 logits (the plain version
+# summed in f64 shows it), so the full loop gets a gross gate (relative RMS of
+# the live logits) and the fine gates run on each decoder layer alone (a
+# bundle of that one layer): share of live logits differing at all and their
+# relative RMS, max over layers, limits set from the readings in PERF.md.
+# The control (plain version with f32 product operands) must break a fine
+# limit.  Every draw before forcing must equal the plain sampler on the
+# kernel's own logits, bit for bit.
+FUSED_FULL_RMS_TOL = 2e-2
+FUSED_LAYER_LIMITS = {"share": 0.3, "rel_rms": 3e-3}
+FUSED_TEMP, FUSED_TOPK = 0.8, 50
+
+
+def _fused_run(qdec, config, x0, c0, gum, temp, topk, greedy):
+    """Kernel, plain version, f64-summed plain version and control, forced on
+    the plain version's own tokens: {side: (samples, logits, draws)}."""
+    import torch
+
+    from csm_tpu_torch.ops import fused_decoder as fd
+
+    B, N = x0.shape[0], config.audio_num_codebooks
+    args = (qdec, config, x0, c0, gum, temp, topk, greedy)
+    forced = fd.decode_codebooks_reference(*args, torch.full((B, N), -1, device=x0.device))[0]
+    out = dict(forced=forced,
+               kernel=fd.fused_decode_codebooks(*args, forced=forced, return_logits=True),
+               plain=fd.decode_codebooks_reference(*args, forced),
+               f64=fd.decode_codebooks_reference(*args, forced, acc=torch.float64),
+               control=fd.decode_codebooks_reference(*args, forced, act=torch.float32))
+    torch.cuda.synchronize()
+    return out
+
+
+def _logit_readings(lg, ref, Va: int):
+    a, r = lg[..., :Va].float(), ref[..., :Va].float()
+    return dict(share=share_differing(a, r), rel_rms=rel_rms(a, r))
+
+
+def check_fused(qdecs, params, config, B: int, gen):
+    """Kernel vs plain version at both head widths, greedy and sampled."""
+    import torch
+    import torch.nn.functional as F
+
+    from csm_tpu_torch.ops import fused_decoder as fd
+
+    dev, N, Va = "cuda", config.audio_num_codebooks, config.audio_vocab_size
+    D, L = config.backbone.hidden_size, config.decoder.num_hidden_layers
+    last_h = torch.randn((B, D), generator=gen, device=dev).bfloat16()
+    x0 = (last_h @ params["projection"]).float()
+    c0 = (last_h @ params["codebook0_head"]).float()
+    gum_s = fd.build_frame_gumbel(config, gen, B, False, dev)
+    temp = torch.full((B,), FUSED_TEMP, device=dev)
+    topk = torch.full((B,), FUSED_TOPK, dtype=torch.int32, device=dev)
+    out = {}
+    for head_bits, qdec in qdecs.items():
+        for greedy in (True, False):
+            gum = gum_s * 0 if greedy else gum_s
+            mode = "greedy" if greedy else "sampled"
+            tag = f"fused B={B} head{head_bits} {mode}"
+            run = _fused_run(qdec, config, x0, c0, gum, temp, topk, greedy)
+            samples, lg, draws = run["kernel"]
+            ref = run["plain"]
+            full = {side: _logit_readings(run[side][1], ref[1], Va)
+                    for side in ("kernel", "f64", "control")}
+            gp = F.pad(gum, (0, lg.shape[-1] - Va))
+            mine = torch.stack([fd.sample_row(lg[i], gp[i], temp[:, None], topk[:, None], greedy)
+                                for i in range(N)], dim=1)
+            draws_equal = torch.equal(mine, draws)
+            vs_plain = (draws == ref[2]).float().mean().item()
+            check(bool(torch.isfinite(lg).all()) and full["kernel"]["rel_rms"] <= FUSED_FULL_RMS_TOL,
+                  f"{tag}: full-depth logits relative RMS {full['kernel']['rel_rms']:.3e}")
+            check(torch.equal(samples, run["forced"]), f"{tag}: forced tokens did not pass through")
+            check(draws_equal, f"{tag}: a draw differs from the sampler on the kernel's logits")
+            layer = {side: {k: 0.0 for k in FUSED_LAYER_LIMITS} for side in ("kernel", "f64", "control")}
+            for l in range(L):
+                r1 = _fused_run(one_layer(qdec, l), config, x0, c0, gum, temp, topk, greedy)
+                for side in layer:
+                    for k, x in _logit_readings(r1[side][1], r1["plain"][1], Va).items():
+                        layer[side][k] = max(layer[side][k], x)
+            log(f"{tag}: full depth logits differing / rel RMS: kernel {full['kernel']['share']:.3e}"
+                f" / {full['kernel']['rel_rms']:.3e}, f64 {full['f64']['share']:.3e} / "
+                f"{full['f64']['rel_rms']:.3e}, control {full['control']['share']:.3e} / "
+                f"{full['control']['rel_rms']:.3e}; one layer (max over {L}): kernel "
+                f"{layer['kernel']['share']:.3e} / {layer['kernel']['rel_rms']:.3e}, f64 "
+                f"{layer['f64']['share']:.3e} / {layer['f64']['rel_rms']:.3e}, control "
+                f"{layer['control']['share']:.3e} / {layer['control']['rel_rms']:.3e}, limits "
+                f"{FUSED_LAYER_LIMITS['share']} / {FUSED_LAYER_LIMITS['rel_rms']}; draws == "
+                f"sampler on own logits {draws_equal}; draws == plain draws {vs_plain:.4f}")
+            for k, lim in FUSED_LAYER_LIMITS.items():
+                check(layer["kernel"][k] <= lim, f"{tag}: one-layer logits {k} {layer['kernel'][k]:.3e} > {lim}")
+            check(any(layer["control"][k] > lim for k, lim in FUSED_LAYER_LIMITS.items()),
+                  f"{tag}: the one-layer limits do not see the f32-operand control")
+            out[f"head{head_bits}_{mode}"] = dict(
+                full=full, one_layer=layer, draws_equal=draws_equal, draws_vs_plain=vs_plain,
+                max_abs=(lg[..., :Va] - ref[1][..., :Va]).abs().max().item())
+    timing = {}
+    for head_bits, qdec in qdecs.items():
+        args = (qdec, config, x0, c0, gum_s, temp, topk, False)
+        ms = cuda_ms(lambda: fd.fused_decode_codebooks(*args), iters=10)
+        timing[head_bits] = dict(ms=ms, bound=fused_bound(qdec, config, B))
+        log(f"fused B={B} head{head_bits}: kernel {ms:.4f} ms per frame, bound "
+            f"{timing[head_bits]['bound'][0]:.4f} ms ({timing[head_bits]['bound'][1]})")
+    args = (qdecs[16], config, x0, c0, gum_s, temp, topk, False, torch.full((B, N), -1, device=dev))
+    plain_ms = cuda_ms(lambda: fd.decode_codebooks_reference(*args), iters=2, warmup=1)
+    log(f"fused B={B}: plain version {plain_ms:.2f} ms per frame (bf16 head, sampled)")
+    t16 = timing[16]
+    return dict(err=max(v["max_abs"] for v in out.values()), ms=t16["ms"], plain_ms=plain_ms,
+                library_ms=None, bound_ms=t16["bound"][0], bound_by=t16["bound"][1],
+                ms_head8=timing[8]["ms"], bound_ms_head8=timing[8]["bound"][0],
+                shape=f"B={B} CSM-1B decoder, bf16 head, sampled", gates=out)
+
+
+def fused_bound(qdec, config, B: int):
+    """The least time of one frame: 31 passes over the int8 decoder weights
+    and their scales, 31 head slices at their Va real columns, the embedding
+    rows the draws fetch, the noise and the other inputs and outputs once;
+    operations at the bf16 rate."""
+    N, Va = config.audio_num_codebooks, config.audio_vocab_size
+    Dd = config.decoder.hidden_size
+    passes = N - 1
+    mats = [qdec["w"][k] for k in ("wqkv", "wo", "w_gu", "w_down")]
+    w_bytes = passes * (nbytes(*mats) + nbytes(*qdec["s"].values()))
+    head = qdec["audio_head"]
+    h_bytes = passes * Dd * Va * head.element_size() + (passes * Va * 4 if "head_scale" in qdec else 0)
+    emb_bytes = passes * B * Dd * qdec["proj_emb"].element_size()
+    io_bytes = 4 * (N * B * Va + B * Va + B * Dd + 2 * B) + 8 * B * N
+    n_flops = 2 * B * passes * (sum(m.numel() for m in mats) + Dd * Va)
+    return bound_ms(w_bytes + h_bytes + emb_bytes + io_bytes, n_flops)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: end to end
 # ---------------------------------------------------------------------------
 
 
 def prompt(config, B: int, S: int, seed: int):
     """``[B, S, 33]`` prompts: 8 text frames then audio frames, row b
-    left-padded by 3*b frames."""
+    left-padded by 3 * (b % 8) frames."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -327,7 +607,7 @@ def prompt(config, B: int, S: int, seed: int):
     ids = np.zeros((B, S, Wd), np.int64)
     mask = np.zeros((B, S, Wd), np.float32)
     for b in range(B):
-        p = 3 * b
+        p = 3 * (b % 8)
         ids[b, p:p + 8, N] = rng.integers(1, config.text_vocab_size, 8)
         mask[b, p:p + 8, N] = 1
         ids[b, p + 8:, :N] = rng.integers(1, config.audio_vocab_size, (S - p - 8, N))
@@ -335,34 +615,87 @@ def prompt(config, B: int, S: int, seed: int):
     return ids, mask
 
 
+def launch_counters():
+    """The wrappers whose ``launches`` count each port kernel's launches."""
+    from csm_tpu_torch.ops.bb_kernel import bb_decode_step, bb_decode_step_q
+    from csm_tpu_torch.ops.flash_attention import flash_attention
+    from csm_tpu_torch.ops.fused_decoder import fused_decode_codebooks
+
+    return {"flash_fwd": flash_attention, "bb_decode": bb_decode_step,
+            "bb_decode_q": bb_decode_step_q, "fused_decoder": fused_decode_codebooks}
+
+
 def run_generate(model, ids, mask, n_frames: int, counters):
     import torch
 
-    from csm_tpu_torch.ops.bb_kernel import bb_decode_step
-    from csm_tpu_torch.ops.flash_attention import flash_attention
-
+    wrappers = launch_counters()
     model.generate(ids, mask, max_new_frames=2, greedy=True, stop_on_all_zeros=False)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.generate(ids, mask, max_new_frames=1, greedy=True, stop_on_all_zeros=False)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    flash_attention.launches = 0
-    bb_decode_step.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frames = model.generate(ids, mask, max_new_frames=n_frames, greedy=True,
                             stop_on_all_zeros=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_attention.launches, "bb_decode": bb_decode_step.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     for k, v in launches.items():
         counters[k] += v
     return frames, dt, first, launches
 
 
+# Kernel launches each tier must show over an F-frame call at batch B: the
+# prefill's 16 flash launches, one backbone step for each frame after the
+# first, one fused-decoder call per frame (speculative tier: one per round).
+def expected_launches(tier: str, B: int, F: int) -> dict:
+    return {
+        "plain": {"bb_decode": 0, "bb_decode_q": 0, "fused_decoder": 0},
+        "exact": {"bb_decode": F - 1, "bb_decode_q": 0},
+        "quantize": {"bb_decode": 0, "bb_decode_q": F - 1, "fused_decoder": F},
+    }[tier]
+
+
+def specdec_rounds(model, ids, mask, n_frames: int) -> dict:
+    """The speculative tier over ``n_frames`` greedy frames, each frame's
+    rounds recorded and its output held to the fixed point of the verify
+    pass."""
+    from csm_tpu_torch import generation
+    from csm_tpu_torch.ops import fused_decoder as fd
+    from csm_tpu_torch.ops import specdec
+
+    rounds, fixed = [], []
+    orig = generation.decode_frame_specdec
+
+    def traced(params, qdec, config, last_h, c0_logits, gumbel, temperature, topk, greedy):
+        tokens, r = orig(params, qdec, config, last_h, c0_logits, gumbel, temperature, topk,
+                         greedy, return_rounds=True)
+        t, k, _ = fd.row_params(last_h.shape[0], config.audio_vocab_size, temperature, topk,
+                                gumbel)
+        again = specdec.verify_codebooks(params, config, last_h, tokens, gumbel, t[:, None],
+                                         k[:, None], greedy)
+        rounds.append(r)
+        fixed.append(bool((again == tokens).all()))
+        return tokens
+
+    generation.decode_frame_specdec = traced
+    try:
+        model.generate(ids, mask, max_new_frames=n_frames, greedy=True, stop_on_all_zeros=False)
+    finally:
+        generation.decode_frame_specdec = orig
+    return dict(rounds=rounds, fixed_point=fixed)
+
+
+E2E_FRAMES = 16
+E2E_RUNS = (("plain", 1), ("plain", 8), ("exact", 1), ("exact", 8),
+            ("quantize", 1), ("quantize", 8), ("quantize", 32))
+
+
 def end_to_end(model, results):
-    import numpy as np
     import torch
 
     from csm_tpu_torch import CSMModel
@@ -385,40 +718,48 @@ def end_to_end(model, results):
     del model
     torch.cuda.empty_cache()
 
-    S, F = 64, 32
-    counters = {"flash_fwd": 0, "bb_decode": 0}
-    ids8, mask8 = prompt(cfg, 8, S, seed=1)
-    runs = {}
-    for tier in ("plain", "exact"):
-        if tier == "exact":
-            loaded.exact()
-        for B in (1, 8):
-            frames, dt, first, launches = run_generate(loaded, ids8[:B], mask8[:B], F, counters)
-            fps = B * F / dt
-            step_ms = (dt - first) / (F - 1) * 1e3
-            log(f"generate {tier} B={B}: {tuple(frames.shape)} in {dt:.3f} s = {fps:.2f} frames/s "
-                f"(prefill included); first frame {first * 1e3:.1f} ms, then {step_ms:.1f} ms "
-                f"per frame step; launches {launches}")
-            if frames.shape != (B, F, cfg.audio_num_codebooks):
-                check(False, f"{tier} B={B}: frames shape {frames.shape}")
-                continue
-            check(0 <= frames.min() and frames.max() < cfg.audio_vocab_size,
-                  f"{tier} B={B}: token out of range")
-            check(launches["flash_fwd"] > 0, f"{tier} B={B}: the prefill did not run the flash kernel")
-            want = F - 1 if tier == "exact" else 0
-            check(launches["bb_decode"] == want,
-                  f"{tier} B={B}: {launches['bb_decode']} backbone kernel launches, want {want}")
-            runs[(tier, B)] = frames
-            results["e2e"][f"{tier}_B{B}_frames_per_s"] = fps
-            results["e2e"][f"{tier}_B{B}_first_frame_ms"] = first * 1e3
-            results["e2e"][f"{tier}_B{B}_frame_step_ms"] = step_ms
-    for B in (1, 8):
-        agree = float(np.mean(runs[("exact", B)] == runs[("plain", B)]))
-        results["e2e"][f"exact_vs_plain_token_agreement_B{B}"] = agree
-        log(f"exact vs plain greedy token agreement B={B}: {agree:.4f} "
-            "(random weights: near-tied logits; reported, not gated)")
-    for B in (1, 8):
-        results[f"profile_exact_B{B}"] = profile_generate(loaded, ids8[:B], mask8[:B], 8)
+    S, F = 64, E2E_FRAMES
+    counters = {k: 0 for k in launch_counters()}
+    ids, mask = prompt(cfg, 32, S, seed=1)
+    e2e = results["e2e"]
+    tier = None
+    for name, B in E2E_RUNS:
+        if name != tier:
+            tier = name
+            if name == "exact":
+                loaded.exact()
+            elif name == "quantize":
+                loaded.quantize()
+        frames, dt, first, launches = run_generate(loaded, ids[:B], mask[:B], F, counters)
+        fps = B * F / dt
+        step_ms = (dt - first) / (F - 1) * 1e3
+        log(f"generate {name} B={B}: {tuple(frames.shape)} in {dt:.3f} s = {fps:.2f} frames/s "
+            f"(prefill included); first frame {first * 1e3:.1f} ms, then {step_ms:.1f} ms "
+            f"per frame step; launches {launches}")
+        if frames.shape != (B, F, cfg.audio_num_codebooks):
+            check(False, f"{name} B={B}: frames shape {frames.shape}")
+            continue
+        check(0 <= frames.min() and frames.max() < cfg.audio_vocab_size,
+              f"{name} B={B}: token out of range")
+        check(launches["flash_fwd"] > 0, f"{name} B={B}: the prefill did not run the flash kernel")
+        for k, want in expected_launches(name, B, F).items():
+            check(launches[k] == want, f"{name} B={B}: {launches[k]} {k} launches, want {want}")
+        if name == "exact":
+            check(launches["fused_decoder"] >= F, f"exact B={B}: the draft kernel ran "
+                  f"{launches['fused_decoder']} times over {F} frames")
+        e2e[f"{name}_B{B}"] = dict(frames_per_s=fps, first_frame_ms=first * 1e3,
+                                   frame_step_ms=step_ms, launches=launches)
+        if name == "exact":
+            rec = specdec_rounds(loaded, ids[:B], mask[:B], 8)
+            log(f"exact B={B}: speculative rounds per frame {rec['rounds']}; every frame a fixed "
+                f"point of the verify pass: {all(rec['fixed_point'])}")
+            check(all(rec["fixed_point"]), f"exact B={B}: a frame is not a fixed point of verify")
+            e2e[f"exact_B{B}"]["specdec"] = rec
+            if B == 1:
+                results["profile_exact_B1"] = profile_generate(loaded, ids[:1], mask[:1], 8, "exact")
+        if name == "quantize" and B <= 8:
+            results[f"profile_quantize_B{B}"] = profile_generate(loaded, ids[:B], mask[:B], 8,
+                                                                 "quantize")
     return counters
 
 
@@ -430,7 +771,13 @@ PORT_KERNELS = {
     "flash_fwd": ("flash_fwd_kernel",),
     "bb_decode": ("gemm_partial_kernel", "rope_attn_kernel", "rmsnorm_kernel",
                   "reduce_round_kernel", "reduce_residual_kernel", "reduce_swiglu_kernel"),
+    "bb_decode_q": ("gemm_kernel", "init_kernel", "attn_kernel", "residual_kernel",
+                    "swiglu_kernel", "final_kernel", "logits_kernel"),
+    "fused_decoder": ("fused_decoder_kernel",),
 }
+# The groups each tier's profile must show.
+PROFILED = {"exact": ("flash_fwd", "bb_decode", "fused_decoder"),
+            "quantize": ("flash_fwd", "bb_decode_q", "fused_decoder")}
 _PORT_NAME = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
 
 
@@ -443,7 +790,7 @@ def port_kernel(name: str):
     return None
 
 
-def profile_generate(model, ids, mask, n_frames: int) -> dict:
+def profile_generate(model, ids, mask, n_frames: int, tier: str) -> dict:
     """Where a generate call's time goes: device time by kernel under
     torch.profiler, split into the port's kernels and everything else, beside
     the host's wall time for the call."""
@@ -473,18 +820,21 @@ def profile_generate(model, ids, mask, n_frames: int) -> dict:
             seen.add(hit[1])
         groups[g][0] += n
         groups[g][1] += ms
-    missing = {k for ks in PORT_KERNELS.values() for k in ks} - seen
-    check(not missing, f"profile: no device time under the port's kernel names {sorted(missing)}")
+    missing = {k for g in PROFILED[tier] for k in PORT_KERNELS[g]} - seen
+    check(not missing, f"profile {tier}: no device time under the port's kernel names {sorted(missing)}")
     B = ids.shape[0]
-    log(f"profile exact B={B}, {n_frames} frames: wall {wall_ms:.1f} ms under the profiler, "
-        f"device busy {busy:.1f} ms ({busy / wall_ms:.1%}); device ms (launches) by group "
+    n_kernels = sum(n for n, _ in by_name.values())
+    log(f"profile {tier} B={B}, {n_frames} frames: wall {wall_ms:.1f} ms under the profiler, "
+        f"device busy {busy:.1f} ms ({busy / wall_ms:.1%}), {n_kernels / n_frames:.0f} kernels "
+        "per frame; device ms (launches) by group "
         + ", ".join(f"{k} {ms:.2f} ({n})" for k, (n, ms) in groups.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, ms) in top:
         log(f"  {ms:8.2f} ms {n:6d}x  {name[:110]}")
-    return dict(frames=n_frames, B=B, wall_ms=wall_ms, device_busy_ms=busy,
+    return dict(tier=tier, frames=n_frames, B=B, wall_ms=wall_ms, device_busy_ms=busy,
                 device_ms_by_group={k: ms for k, (_, ms) in groups.items()},
-                launches_by_group={k: n for k, (n, _) in groups.items()}, n_kernels=sum(n for n, _ in by_name.values()),
+                launches_by_group={k: n for k, (n, _) in groups.items()}, n_kernels=n_kernels,
+                kernels_per_frame=n_kernels / n_frames,
                 top=[dict(name=k[:160], count=n, ms=ms) for k, (n, ms) in top])
 
 
@@ -551,10 +901,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build(["flash_fwd", "bb_decode"])
-    log(f"built flash_fwd and bb_decode in {time.perf_counter() - t0:.1f} s")
+    _build.build(KERNELS)
+    log(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
-    for name in ("flash_fwd", "bb_decode"):
+    for name in KERNELS:
         report = _build.ptxas_report(name)
         with open(os.path.join(OUT_DIR, f"ptxas_{name}.log"), "w") as f:
             f.write(report)
@@ -573,7 +923,19 @@ def main() -> int:
     model.exact()
     log(f"random CSM-1B bf16 model + exact bundle in {time.perf_counter() - t0:.1f} s")
     bb = {B: check_bb(model._qsb, cfg, B, gen) for B in (1, 8)}
-    model._qsb = None
+    model._qsb = model._qdec = None
+    torch.cuda.empty_cache()
+
+    from csm_tpu_torch.ops.bb_kernel import prepare_streamed_backbone
+    from csm_tpu_torch.ops.fused_decoder import prepare_fused_decoder
+
+    jittered = perturbed_norms(model.params, gen)
+    qsb8 = prepare_streamed_backbone(jittered, cfg, bits=8)
+    bbq = {B: check_bbq(qsb8, cfg, B, gen) for B in (1, 8, 32)}
+    del qsb8
+    qdecs = {hb: prepare_fused_decoder(jittered, cfg, head_bits=hb) for hb in (16, 8)}
+    fused = {B: check_fused(qdecs, jittered, cfg, B, gen) for B in (1, 8, 32)}
+    del qdecs, jittered
     torch.cuda.empty_cache()
 
     results = {"e2e": {}}
@@ -585,6 +947,10 @@ def main() -> int:
              replaces="csm_tpu/ops/flash_attention.py:104", r=flash[8]),
         dict(name="bb_decode", route="cuda", source="csm_tpu_torch/csrc/bb_decode.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1]),
+        dict(name="bb_decode_q", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",
+             replaces="csm_tpu/ops/bb_kernel.py:573", r=bbq[1]),
+        dict(name="fused_decoder", route="cuda", source="csm_tpu_torch/csrc/fused_decoder.cu",
+             replaces="csm_tpu/ops/fused_decoder.py:566", r=fused[1]),
     ]
     kernels = []
     for row in rows:
@@ -596,7 +962,8 @@ def main() -> int:
         ))
     extra = {
         "flash_fwd_B1": flash[1], "flash_fwd_B8_float32": flash_f32, "bb_decode_B1": bb[1],
-        "bb_decode_B8": bb[8],
+        "bb_decode_B8": bb[8], **{f"bb_decode_q_B{B}": r for B, r in bbq.items()},
+        **{f"fused_decoder_B{B}": r for B, r in fused.items()},
         **results,
         "card": smi, "seconds": time.perf_counter() - t_start,
     }

@@ -8,9 +8,10 @@ A second package beside the JAX one (which stays the reference).  It imports
 - :mod:`csm_tpu_torch.generation`: greedy / top-k generation from
   ``[B, S, 33]`` prompts to ``[B, F, 32]`` codebook tokens.
 - :mod:`csm_tpu_torch.model_api`: ``CSMModel`` (``from_pretrained``,
-  ``generate``, ``exact()``).
-- :mod:`csm_tpu_torch.ops`: RoPE, sampling, and the hand-written CUDA
-  kernels (flash prefill, exact backbone decode step) beside their plain
+  ``generate``, ``exact()``, ``quantize()``).
+- :mod:`csm_tpu_torch.ops`: RoPE, sampling, W8A16 weights, the speculative
+  codebook loop, and the hand-written CUDA kernels (flash prefill, exact and
+  int8 backbone decode steps, fused codebook loop) beside their plain
   PyTorch versions.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed.

@@ -2,14 +2,16 @@
 KV-cached backbone decode plus intra-frame decoder sampling (reference
 ``modeling_csm.py:484-702``).
 
-Each frame: one backbone decode step (through the exact kernel when a
+Each frame: one backbone decode step (through a backbone kernel when a
 ``qsb`` bundle is given), c0 sampled from ``codebook0_head``, the decoder
 prefilled with ``[proj(h); proj(embed(c0))]`` at positions 0..1 and stepped
 for codebooks 1..30, codebook 31 classified from the last state with no
-trailing step, and the next ``[B, 1, 33]`` input built.  Eager PyTorch with
-the JAX package's static shapes: a prompt right-padded to a bucket, a
-backbone cache window of ``min(max_seq_len, S + max_new_frames)`` rounded up
-to 128 slots, a 33-slot decoder cache per frame.
+trailing step, and the next ``[B, 1, 33]`` input built.  The codebook loop is
+plain PyTorch, the fused int8 kernel (``qdec``), or the speculative tier
+(``qdec`` with ``specdec``); all draw from one noise table per frame.  Eager
+PyTorch with the JAX package's static shapes: a prompt right-padded to a
+bucket, a backbone cache window of ``min(max_seq_len, S + max_new_frames)``
+rounded up to 128 slots, a 33-slot decoder cache per frame.
 
 Stopping (``modeling_csm.py:662-663``): ``stop_mode="batch"`` stops when a
 frame is all zero in every stream (not appended); ``stop_mode="stream"``
@@ -26,8 +28,10 @@ import torch
 from csm_tpu_torch.config import CSMConfig
 from csm_tpu_torch.models import csm, llama
 from csm_tpu_torch.models.llama import KVCache
+from csm_tpu_torch.ops.fused_decoder import MAX_CHUNKED_B, build_frame_gumbel, decode_frame_fused
 from csm_tpu_torch.ops.rope import compute_rope_table
 from csm_tpu_torch.ops.sampling import sample_topk
+from csm_tpu_torch.ops.specdec import MAX_SPECDEC_B, decode_frame_specdec
 
 
 def _decoder_step(
@@ -62,19 +66,34 @@ def decode_frame(
     topk=50,
     greedy: bool = False,
     generator: Optional[torch.Generator] = None,
+    qdec: Optional[dict] = None,
+    specdec: bool = False,
 ) -> torch.Tensor:
     """Sample all 32 codebooks of one frame; returns ``[B, 32]`` int64.
-    Gumbel noise is drawn from ``generator``; ``temperature`` / ``topk``
-    may be per-row ``[B]`` tensors."""
+
+    The frame's Gumbel noise table ``[32, B, Va]`` is drawn once from
+    ``generator`` (row i for codebook i), whichever tier runs.
+    ``temperature`` / ``topk`` may be per-row ``[B]`` tensors.  ``qdec``: a
+    :func:`~csm_tpu_torch.ops.fused_decoder.prepare_fused_decoder` bundle;
+    batches of up to ``MAX_CHUNKED_B`` then run the fused int8 kernel, or,
+    with ``specdec``, up to ``MAX_SPECDEC_B`` run the speculative tier
+    (exact: its tokens are the plain loop's).  Other batches take the plain
+    loop."""
     B = last_h.shape[0]
     N = config.audio_num_codebooks
     Va = config.audio_vocab_size
     proj = params["projection"]
+    gumbel = build_frame_gumbel(config, generator, B, greedy, last_h.device)
+    args = (params, qdec, config, last_h, c0_logits, gumbel, temperature, topk, greedy)
+    if qdec is not None and specdec and B <= MAX_SPECDEC_B:
+        return decode_frame_specdec(*args)
+    if qdec is not None and not specdec and B <= MAX_CHUNKED_B:
+        return decode_frame_fused(*args)
 
-    def draw(logits):
-        return sample_topk(logits, topk, temperature, greedy, generator=generator)
+    def draw(logits, i):
+        return sample_topk(logits, topk, temperature, greedy, noise=gumbel[i])
 
-    c0 = draw(c0_logits)
+    c0 = draw(c0_logits, 0)
     c0_embed = csm.embed_audio(params, config, 0, c0)
     dec_cache = KVCache.create(
         config.decoder, B, config.decoder_rope_positions, dtype=last_h.dtype, device=last_h.device
@@ -86,11 +105,11 @@ def decode_frame(
     # Codebooks 1..N-2 each also advance the decoder; N-1 is classified from
     # the last state without a trailing step.
     for i in range(1, N - 1):
-        ci = draw(h_last @ params["audio_head"][i - 1])
+        ci = draw(h_last @ params["audio_head"][i - 1], i)
         out.append(ci)
         ci_embed = params["audio_embeddings"][ci + i * Va]
         h_last, dec_cache = _decoder_step(params, config, (ci_embed @ proj)[:, None, :], dec_cache)
-    out.append(draw(h_last @ params["audio_head"][N - 2]))
+    out.append(draw(h_last @ params["audio_head"][N - 2], N - 1))
     return torch.stack(out, dim=1)
 
 
@@ -107,16 +126,21 @@ def generate_frame(
     generator: Optional[torch.Generator] = None,
     true_len: Optional[int] = None,
     flash_prefill: bool = False,
+    qdec: Optional[dict] = None,
+    qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
+    specdec: bool = False,
 ) -> csm.CSMOutput:
     """One frame's 32 codebooks (reference ``generate_frame``).
 
     ``true_len``: the real frame count of a right-padded prompt; the cache
-    index is pinned there so later steps overwrite the bucket padding."""
+    index is pinned there so later steps overwrite the bucket padding.
+    ``qbb`` / ``qsb`` select the backbone step's tier, ``qdec`` /
+    ``specdec`` the codebook loop's (:func:`decode_frame`)."""
     out = csm.forward(
         params, config, input_ids, attention_mask, cache=cache,
         last_index=None if true_len is None else true_len - 1,
-        flash_prefill=flash_prefill, qsb=qsb,
+        flash_prefill=flash_prefill, qbb=qbb, qsb=qsb,
     )
     new_cache = out.cache
     if new_cache is not None and true_len is not None:
@@ -125,6 +149,7 @@ def generate_frame(
     samples = decode_frame(
         params, config, out.last_hidden_state, out.logits,
         temperature=temperature, topk=topk, greedy=greedy, generator=generator,
+        qdec=qdec, specdec=specdec,
     )
     return csm.CSMOutput(
         last_hidden_state=out.last_hidden_state, logits=out.logits,
@@ -160,11 +185,16 @@ def generate_compiled(
     stop_mode: str = "batch",
     cache_len: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
+    qdec: Optional[dict] = None,
+    qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
+    specdec: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill plus a loop of frame steps with static shapes.  Returns
     ``(frames [B, max_new_frames, 32], n_frames [B])``; rows past a stream's
-    ``n_frames`` are zero."""
+    ``n_frames`` are zero.  The prefill's backbone stays in the param dtype;
+    ``qbb`` / ``qsb`` serve the later frames' backbone steps, ``qdec`` /
+    ``specdec`` every frame's codebook loop."""
     if stop_mode not in ("batch", "stream"):
         raise ValueError(f"stop_mode must be 'batch' or 'stream', got {stop_mode!r}")
     B, S, _ = input_ids.shape
@@ -177,7 +207,8 @@ def generate_compiled(
         cache_len = ((cache_len + 127) // 128) * 128
     dtype = params["backbone"]["final_norm"].dtype
     cache = KVCache.create(config.backbone, B, cache_len, dtype=dtype, device=dev)
-    sample_kw = dict(temperature=temperature, topk=topk, greedy=greedy, generator=generator)
+    sample_kw = dict(temperature=temperature, topk=topk, greedy=greedy, generator=generator,
+                     qdec=qdec, specdec=specdec)
     out = generate_frame(
         params, config, input_ids, attention_mask, cache=cache,
         true_len=true_len, flash_prefill=True, **sample_kw,
@@ -208,7 +239,8 @@ def generate_compiled(
         if stop_on_all_zeros and bool(done.all()):
             break
         ids, mask = _next_frame_inputs(config, prev)
-        out = generate_frame(params, config, ids, mask, cache=cache, qsb=qsb, **sample_kw)
+        out = generate_frame(params, config, ids, mask, cache=cache, qbb=qbb, qsb=qsb,
+                             **sample_kw)
         done, n_frames = process(out.samples, done, n_frames, step)
         prev, cache = out.samples, out.cache
     return frames, n_frames
@@ -246,7 +278,10 @@ def generate(
     generator: Optional[torch.Generator] = None,
     greedy: bool = False,
     stop_mode: str = "batch",
+    qdec: Optional[dict] = None,
+    qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
+    specdec: bool = False,
 ) -> np.ndarray:
     """Reference-compatible ``generate``: ``[B, n_frames, 32]`` int64 numpy
     tokens (possibly ``[B, 0, 32]``), computed on the params' device."""
@@ -262,7 +297,7 @@ def generate(
         params, config, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), S,
         max_new_frames=max_new_frames, temperature=temperature, topk=topk, greedy=greedy,
         stop_on_all_zeros=stop_on_all_zeros, stop_mode=stop_mode, generator=generator,
-        qsb=qsb,
+        qdec=qdec, qbb=qbb, qsb=qsb, specdec=specdec,
     )
     n_frames = n_frames.cpu()
     n = int(n_frames.max()) if stop_mode == "stream" else int(n_frames[0])

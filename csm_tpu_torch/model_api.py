@@ -38,7 +38,8 @@ class CSMModel:
         if params is None:
             params = csm.init_params(config, seed, dtype, self.device)
         self.params = params
-        self._qsb = None
+        self._qdec = self._qbb = self._qsb = None
+        self._specdec = False
 
     # -- reference API ------------------------------------------------------
 
@@ -87,20 +88,43 @@ class CSMModel:
         )
 
     def quantize(self, bits: int = 8, head_bits: int = 16) -> "CSMModel":
-        raise NotImplementedError(
-            "the quantized tiers (int8 fused decoder, W8A16/W4A16 backbone "
-            "kernels) are not ported yet; see ROADMAP.md"
-        )
+        """The int8 fast tier: each frame's codebook loop runs the fused
+        int8 kernel (``head_bits=8`` also quantizes its per-codebook head
+        slices), per-frame backbone steps of up to 32 streams the int8
+        backbone kernel and larger ones W8A16 products.  The prompt's
+        prefill stays in the param dtype.  Quantized numerics: tokens differ
+        from the plain path's.  Returns ``self``; the later of
+        :meth:`quantize` and :meth:`exact` wins."""
+        from csm_tpu_torch.ops.bb_kernel import prepare_streamed_backbone
+        from csm_tpu_torch.ops.fused_decoder import prepare_fused_decoder
+        from csm_tpu_torch.ops.quant import prepare_quantized_backbone
+
+        if bits != 8:
+            raise NotImplementedError(
+                f"quantize(bits={bits}): only bits=8 is ported; the int4 backbone "
+                "tier is queued in ROADMAP.md"
+            )
+        self._qdec = prepare_fused_decoder(self.params, self.config, head_bits=head_bits)
+        self._qbb = prepare_quantized_backbone(self.params, self.config)
+        self._qsb = prepare_streamed_backbone(self.params, self.config, bits=8)
+        self._specdec = False
+        return self
 
     def exact(self) -> "CSMModel":
-        """Route each per-frame backbone step of up to 8 streams through the
-        exact bf16 backbone kernel (same rounding points as the plain bf16
-        path, so the same tokens for bf16 params).  The codebook loop stays
-        the plain bf16 loop: the speculative draft of the JAX exact tier
-        waits for the fused decoder kernel.  Returns ``self``."""
+        """The exact fast tier, the plain path's tokens: per-frame backbone
+        steps of up to 8 streams run the exact bf16 backbone kernel (same
+        rounding points as the plain bf16 path), and the codebook loop of up
+        to 8 streams runs speculative decoding (:mod:`..ops.specdec`): the
+        int8 fused kernel drafts, one teacher-forced plain pass verifies.
+        Returns ``self``; the later of :meth:`quantize` and :meth:`exact`
+        wins."""
         from csm_tpu_torch.ops.bb_kernel import prepare_streamed_backbone
+        from csm_tpu_torch.ops.fused_decoder import prepare_fused_decoder
 
+        self._qdec = prepare_fused_decoder(self.params, self.config, head_bits=8)
+        self._qbb = None  # W8A16 products would break exactness
         self._qsb = prepare_streamed_backbone(self.params, self.config, bits=16)
+        self._specdec = True
         return self
 
     def generate(self, input_ids, attention_mask, max_new_frames: int = 100,
@@ -109,12 +133,19 @@ class CSMModel:
                  generator: Optional[torch.Generator] = None,
                  greedy: bool = False, stop_mode: str = "batch") -> np.ndarray:
         from csm_tpu_torch import generation
+        from csm_tpu_torch.ops import bb_kernel, fused_decoder
 
+        B = np.asarray(input_ids).shape[0]
+        qsb_cap = bb_kernel.MAX_VALIDATED_B_EXACT if self._specdec else bb_kernel.MAX_VALIDATED_B
         return generation.generate(
             self.params, self.config, input_ids, attention_mask,
             max_new_frames=max_new_frames, temperature=temperature, topk=topk,
             use_cache=use_cache, stop_on_all_zeros=stop_on_all_zeros,
-            generator=generator, greedy=greedy, stop_mode=stop_mode, qsb=self._qsb,
+            generator=generator, greedy=greedy, stop_mode=stop_mode,
+            qdec=self._qdec if B <= fused_decoder.MAX_CHUNKED_B else None,
+            qbb=self._qbb,
+            qsb=self._qsb if B <= qsb_cap else None,
+            specdec=self._specdec,
         )
 
     # -- persistence --------------------------------------------------------

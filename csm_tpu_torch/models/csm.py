@@ -127,13 +127,16 @@ def backbone_forward(
     *,
     cache: Optional[KVCache] = None,
     flash_prefill: bool = False,
+    qbb: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Embed-sum + backbone stack -> hidden ``[B, S, D]``.
 
     Frame validity is ``any(mask) > 0`` over the 33 tokens.  Positions are
     sequential frame indices from the cache index (left padding is
     numbered, then masked out of attention).  ``flash_prefill``: the cached call is a
-    prefill at cache index 0, so eligible shapes take the flash kernel."""
+    prefill at cache index 0, so eligible shapes take the flash kernel.
+    ``qbb``: int8 layer weights (:mod:`csm_tpu_torch.ops.quant`) for W8A16
+    products."""
     B, S, _ = input_ids.shape
     dev = input_ids.device
     bcfg = config.backbone
@@ -153,7 +156,7 @@ def backbone_forward(
             bias, flash_valid = llama.make_causal_bias(frame_valid, S), None
         hidden, _ = llama.forward(
             params["backbone"], bcfg, h, rope_table=rope, positions=positions,
-            attn_bias=bias, flash_key_valid=flash_valid,
+            attn_bias=bias, flash_key_valid=flash_valid, qlayers=qbb,
         )
         return hidden, None
 
@@ -169,7 +172,7 @@ def backbone_forward(
         bias, flash_valid = llama.make_causal_bias(cache.valid, S, q_offset=start), None
     return llama.forward(
         params["backbone"], bcfg, h, rope_table=rope, positions=positions,
-        attn_bias=bias, cache=cache, flash_key_valid=flash_valid,
+        attn_bias=bias, cache=cache, flash_key_valid=flash_valid, qlayers=qbb,
     )
 
 
@@ -187,10 +190,11 @@ def forward_decode_streamed(
     attention_mask: Optional[torch.Tensor],
     cache: KVCache,
 ) -> CSMOutput:
-    """One-frame decode step through the exact backbone kernel
-    (:func:`csm_tpu_torch.ops.bb_kernel.bb_decode_step`): embed-sum, then
-    16 layers + final norm + c0 head in the kernel, which returns the new
-    K/V rows; they are scattered into the cache here, in place."""
+    """One-frame decode step through a backbone kernel
+    (:func:`csm_tpu_torch.ops.bb_kernel.bb_decode_step`, exact or int8 by
+    the bundle): embed-sum, then 16 layers + final norm + c0 head in the
+    kernel, which returns the new K/V rows; they are scattered into the
+    cache here, in place."""
     from csm_tpu_torch.ops.bb_kernel import bb_decode_step
 
     B = input_ids.shape[0]
@@ -241,6 +245,7 @@ def forward(
     return_all_logits: bool = False,
     last_index: Optional[int] = None,
     flash_prefill: bool = False,
+    qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
 ) -> CSMOutput:
     """Full forward with optional training losses.
@@ -248,23 +253,25 @@ def forward(
     ``last_index``: the position reported as the "final" hidden/logits (the
     last real frame of a right-padded prompt); defaults to the last row.
     ``qsb``: a :func:`~csm_tpu_torch.ops.bb_kernel.prepare_streamed_backbone`
-    bundle; single-frame cached steps of up to ``MAX_VALIDATED_B_EXACT``
-    streams then go through the exact backbone kernel."""
-    from csm_tpu_torch.ops.bb_kernel import MAX_VALIDATED_B_EXACT
+    bundle; single-frame cached steps of up to its tier's cap
+    (``MAX_VALIDATED_B_EXACT`` for the exact bundle, ``MAX_VALIDATED_B`` for
+    the int8 one) then go through that tier's backbone kernel.  ``qbb``: int8
+    layer weights for the plain backbone's W8A16 products."""
+    from csm_tpu_torch.ops.bb_kernel import MAX_VALIDATED_B, MAX_VALIDATED_B_EXACT
 
     B, S, _ = input_ids.shape
     N = config.audio_num_codebooks
     Va = config.audio_vocab_size
     if (
         qsb is not None and cache is not None and S == 1
-        and B <= MAX_VALIDATED_B_EXACT and labels is None
-        and not return_all_logits
+        and B <= (MAX_VALIDATED_B if "s" in qsb else MAX_VALIDATED_B_EXACT)
+        and labels is None and not return_all_logits
     ):
         return forward_decode_streamed(params, qsb, config, input_ids, attention_mask, cache)
 
     hidden, new_cache = backbone_forward(
         params, config, input_ids, attention_mask, cache=cache,
-        flash_prefill=flash_prefill,
+        flash_prefill=flash_prefill, qbb=qbb,
     )
     head = params["codebook0_head"]
     last_h = hidden[:, -1, :] if last_index is None else hidden[:, last_index, :]

@@ -30,6 +30,7 @@ import torch
 
 from csm_tpu_torch.config import LlamaConfig
 from csm_tpu_torch.ops.flash_attention import flash_attention
+from csm_tpu_torch.ops.quant import qmm
 from csm_tpu_torch.ops.rope import apply_rope, gather_rope
 
 # Finite, so a fully-masked query row softmaxes to uniform instead of NaN.
@@ -156,19 +157,36 @@ def _layer(
     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index: Index = 0,
     flash_key_valid: Optional[torch.Tensor] = None,
+    qlayer: Optional[dict] = None,
 ) -> torch.Tensor:
     """One pre-norm block.  With ``cache_kv`` (this layer's ``[B, max_len,
     nkv, hd]`` views) the new K/V rows are written in place at
     ``cache_index`` and attention spans the whole window.
     ``flash_key_valid`` selects the flash kernel (queries start at absolute
-    position 0: prefill or the uncached forward)."""
+    position 0: prefill or the uncached forward).  ``qlayer``: this layer's
+    int8 weights (:mod:`csm_tpu_torch.ops.quant`); the products then run
+    W8A16, Q/K/V and gate/up fused, each output cast to ``h``'s dtype."""
     B, S, _ = h.shape
     nq, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    F = config.intermediate_size
+
+    if qlayer is not None:
+        def mm(x, name):
+            return qmm(x, qlayer["w"][name], qlayer["s"][name]).to(h.dtype)
+    else:
+        def mm(x, name):
+            return x @ lp[name]
 
     x = rmsnorm(h, lp["attn_norm"], config.rms_norm_eps)
-    q = (x @ lp["wq"]).reshape(B, S, nq, hd)
-    k = (x @ lp["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ lp["wv"]).reshape(B, S, nkv, hd)
+    if qlayer is not None:
+        qkv = mm(x, "wqkv")
+        q = qkv[..., :nq * hd].reshape(B, S, nq, hd)
+        k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(B, S, nkv, hd)
+        v = qkv[..., (nq + nkv) * hd:].reshape(B, S, nkv, hd)
+    else:
+        q = mm(x, "wq").reshape(B, S, nq, hd)
+        k = mm(x, "wk").reshape(B, S, nkv, hd)
+        v = mm(x, "wv").reshape(B, S, nkv, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -183,13 +201,17 @@ def _layer(
     else:
         attn = attention(q, k, v, bias)
 
-    h = h + attn @ lp["wo"]
+    h = h + mm(attn, "wo")
     x = rmsnorm(h, lp["mlp_norm"], config.rms_norm_eps)
-    g = x @ lp["w_gate"]
+    if qlayer is not None:
+        gu = mm(x, "w_gu")
+        g, up = gu[..., :F], gu[..., F:]
+    else:
+        g, up = mm(x, "w_gate"), mm(x, "w_up")
     # x * sigmoid(x), not F.silu: in bf16 the sigmoid is rounded before the
     # product, as in the JAX path and the exact backbone kernel.
-    gated = g * torch.sigmoid(g) * (x @ lp["w_up"])
-    return h + gated @ lp["w_down"]
+    gated = g * torch.sigmoid(g) * up
+    return h + mm(gated, "w_down")
 
 
 def make_causal_bias(
@@ -222,11 +244,14 @@ def forward(
     attn_bias: Optional[torch.Tensor],
     cache: Optional[KVCache] = None,
     flash_key_valid: Optional[torch.Tensor] = None,
+    qlayers: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the stack.  Without a cache, T == S.  With one, the chunk's K/V
     are written (in place) at ``cache.index`` and attention spans the
     window; the returned cache shares the tensors, with the index advanced
-    by ``S``."""
+    by ``S``.  ``qlayers``: stacked int8 weights
+    (:func:`csm_tpu_torch.ops.quant.prepare_quantized_backbone`) for W8A16
+    products."""
     cos, sin = gather_rope(rope_table, positions)
     layers = params["layers"]
     h = inputs_embeds
@@ -234,8 +259,10 @@ def forward(
         lp = {name: w[l] for name, w in layers.items()}
         kv = None if cache is None else (cache.k[l], cache.v[l])
         idx = 0 if cache is None else cache.index
+        ql = None if qlayers is None else {
+            part: {name: w[l] for name, w in qlayers[part].items()} for part in ("w", "s")}
         h = _layer(h, lp, cos, sin, attn_bias, config, cache_kv=kv,
-                   cache_index=idx, flash_key_valid=flash_key_valid)
+                   cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(

@@ -2,8 +2,9 @@
 
 Each ``csm_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` on first use
 into its own shared library with a plain C interface, loaded with
-``ctypes``.  The library's file name carries a hash of the source (and of
-the flags), so an edited kernel is rebuilt and a stale one is never loaded.
+``ctypes``.  The library's file name carries a hash of the source, of the
+shared headers it may include and of the flags, so an edited kernel is
+rebuilt and a stale one is never loaded.
 Outputs go to ``csm_tpu_torch/_build/`` (listed in ``.gitignore``), with the
 compiler's ``-Xptxas -v`` report beside each library.
 
@@ -43,10 +44,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
+    """The library's path, named by a hash of the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,14 +1,19 @@
-"""The exact-tier backbone decode step: the CUDA kernel ``csrc/bb_decode.cu``
-(counterpart of ``csm_tpu/ops/bb_kernel.py::bb_decode_step`` with
-``bits=16``) and its plain PyTorch version.
+"""The backbone decode step (counterpart of
+``csm_tpu/ops/bb_kernel.py::bb_decode_step``) in two tiers, each a CUDA
+kernel beside its plain PyTorch version:
 
-One decode step for ``B <= 8`` streams: the frame's embedding sum through
-the 16 backbone layers, the final norm and the codebook-0 head.  It returns
-the normed hidden, the c0 logits and the new K/V rows, and never writes the
-cache: :func:`csm_tpu_torch.models.csm.forward_decode_streamed` scatters the
-rows.  Every bf16 rounding sits where the plain bf16 path
-(:mod:`csm_tpu_torch.models.llama`) rounds, so its tokens are the plain
-path's.  The quantized tiers (``bits=8`` / ``bits=4``) are not ported yet.
+- ``bits=16``, the exact tier (``csrc/bb_decode.cu``, ``B <= 8``): every bf16
+  rounding sits where the plain bf16 path (:mod:`csm_tpu_torch.models.llama`)
+  rounds, so its tokens are the plain path's;
+- ``bits=8``, the int8 tier (``csrc/bb_decode_q.cu``, ``B <= 32``): W8A16 with
+  int8 per-output-channel weights, the RMSNorm weights folded in (RMSNorm's
+  per-row scale multiplies the products' outputs) and an f32 residual.
+
+One step runs the frame's embedding sum through the 16 backbone layers, the
+final norm and the codebook-0 head.  It returns the normed hidden, the c0
+logits and the new K/V rows, and never writes the cache:
+:func:`csm_tpu_torch.models.csm.forward_decode_streamed` scatters the rows.
+The ``bits=4`` tier is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,32 +26,63 @@ import torch.nn.functional as F
 
 from csm_tpu_torch.config import CSMConfig
 from csm_tpu_torch.ops import _build
+from csm_tpu_torch.ops.fused_decoder import bf16_round, rms_scale
+from csm_tpu_torch.ops.quant import qmm, quantize_per_channel
 from csm_tpu_torch.ops.rope import apply_rope
 
 NEG_INF = -1e9
 KERNEL = "bb_decode"
+KERNEL_Q = "bb_decode_q"
 HEAD_DIM = 64
-# Largest batch routed through the kernel (the JAX exact tier's validated
-# cap); larger batches take the plain path.
+# Largest batches routed through the kernels (the JAX tiers' validated caps);
+# larger batches take the plain path.
 MAX_VALIDATED_B_EXACT = 8
+MAX_VALIDATED_B = 32
 # The kernel splits each product's depth over at most this many blocks.
 _KS_MAX = 64
 
 
 def prepare_streamed_backbone(params: dict, config: CSMConfig, bits: int = 16) -> dict:
-    """The exact tier's weight bundle: per layer bf16 ``wqkv = [wq|wk|wv]``,
-    ``w_gu = [w_gate|w_up]``, ``wo``, ``w_down`` (standard head layout), the
-    c0 head padded to a multiple of 128 columns, and the norm weights in
-    f32.  No norm is folded into a weight, so the weights keep their values."""
-    if bits != 16:
+    """A tier's weight bundle, heads in the standard layout (the TPU
+    kernel's rotary-half column permutation is a TPU layout and is left out).
+
+    ``bits=16``: per layer bf16 ``wqkv = [wq|wk|wv]``, ``w_gu =
+    [w_gate|w_up]``, ``wo``, ``w_down``, the c0 head padded to a multiple of
+    128 columns, and the norm weights in f32.  No norm is folded into a
+    weight, so the weights keep their values.
+
+    ``bits=8``: the same four families with the RMSNorm weights folded into
+    ``wqkv`` and ``w_gu``, int8 per output channel (``"w"``, scales ``[L, 1,
+    N]`` in ``"s"``); the c0 head with the final norm folded in, int8 and
+    padded (scale 1 on the padding); ``final_norm`` in f32."""
+    if bits not in (8, 16):
         raise NotImplementedError(
-            f"bits={bits}: only the exact bf16 tier (bits=16) is ported; the "
-            "quantized tiers are queued in ROADMAP.md"
+            f"bits={bits}: the exact (16) and int8 (8) tiers are ported; the int4 "
+            "tier is queued in ROADMAP.md"
         )
     bl = params["backbone"]["layers"]
     bf = torch.bfloat16
     Va = config.audio_vocab_size
     Va_pad = -(-Va // 128) * 128
+    if bits == 8:
+        attn_nw = bl["attn_norm"].float()[:, :, None]
+        mlp_nw = bl["mlp_norm"].float()[:, :, None]
+        fam = {
+            "wqkv": torch.cat([bl[n].float() * attn_nw for n in ("wq", "wk", "wv")], dim=-1),
+            "wo": bl["wo"].float(),
+            "w_gu": torch.cat([bl[n].float() * mlp_nw for n in ("w_gate", "w_up")], dim=-1),
+            "w_down": bl["w_down"].float(),
+        }
+        out = {"w": {}, "s": {}}
+        for name, w in fam.items():
+            q, sc = quantize_per_channel(w)
+            out["w"][name], out["s"][name] = q.contiguous(), sc.contiguous()
+        fnw = params["backbone"]["final_norm"].float()
+        hq, hs = quantize_per_channel(params["codebook0_head"].float() * fnw[:, None])
+        out["w"]["head"] = F.pad(hq, (0, Va_pad - Va)).contiguous()
+        out["s"]["head"] = F.pad(hs, (0, Va_pad - Va), value=1.0).contiguous()
+        out["final_norm"] = fnw.contiguous()
+        return out
     return {
         "wqkv": torch.cat([bl["wq"], bl["wk"], bl["wv"]], dim=-1).to(bf).contiguous(),
         "w_gu": torch.cat([bl["w_gate"], bl["w_up"]], dim=-1).to(bf).contiguous(),
@@ -57,10 +93,6 @@ def prepare_streamed_backbone(params: dict, config: CSMConfig, bits: int = 16) -
         "mlp_nw": bl["mlp_norm"].float().contiguous(),
         "final_norm": params["backbone"]["final_norm"].float().contiguous(),
     }
-
-
-def _rnd(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).float()
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
@@ -80,7 +112,7 @@ def _rounder(unrounded: frozenset):
     bad = set(unrounded) - set(ROUNDING_POINTS)
     if bad:
         raise ValueError(f"unknown rounding points {sorted(bad)}")
-    return lambda x, point: x if point in unrounded else _rnd(x)
+    return lambda x, point: x if point in unrounded else bf16_round(x)
 
 
 def _rmsnorm(h: torch.Tensor, w: torch.Tensor, eps: float, r) -> torch.Tensor:
@@ -198,9 +230,12 @@ def bb_decode_step(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One backbone decode step.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (and raise on what it does not take).
-    ``bb_decode_step.launches`` counts kernel launches."""
+    """One backbone decode step.  A ``bits=8`` bundle (it carries scales,
+    ``"s"``) goes to :func:`bb_decode_step_q`.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (and raise on what it does not
+    take).  ``bb_decode_step.launches`` counts the exact kernel's launches."""
+    if "s" in qsb:
+        return bb_decode_step_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if h0.device.type == "cpu":
         return bb_decode_step_reference(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if h0.device.type != "cuda":
@@ -262,3 +297,163 @@ def bb_decode_step(
 
 
 bb_decode_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The int8 tier (bits=8)
+# ---------------------------------------------------------------------------
+
+
+def bbq_layer_reference(
+    qsb: dict,
+    config: CSMConfig,
+    l: int,
+    h: torch.Tensor,  # [B, D] f32 residual entering layer l
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    bias_w: torch.Tensor,
+    k_cache: torch.Tensor,  # [B, W, nkv, hd]: layer l's window
+    v_cache: torch.Tensor,
+    acc: torch.dtype = torch.float32,
+    act: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer of :func:`bb_decode_step_q_reference`: the residual leaving
+    layer ``l`` and its new K/V rows (bf16)."""
+    bcfg = config.backbone
+    nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
+    Fi, eps = bcfg.intermediate_size, bcfg.rms_norm_eps
+    B, bf = h.shape[0], torch.bfloat16
+    w, s = qsb["w"], qsb["s"]
+    ok = torch.cat([bias_w >= 0, torch.ones((B, 1), dtype=torch.bool, device=h.device)], dim=1)
+    qkv = qmm(h, w["wqkv"][l], s["wqkv"][l], acc, act) * rms_scale(h, eps)
+    q = apply_rope(qkv[:, :nq * hd].reshape(B, nq, hd), cos, sin)
+    k = apply_rope(qkv[:, nq * hd:(nq + nkv) * hd].reshape(B, nkv, hd), cos, sin).to(bf)
+    v = qkv[:, (nq + nkv) * hd:].reshape(B, nkv, hd).to(bf)
+    keys = torch.cat([k_cache, k[:, None]], dim=1).to(acc)  # [B, W+1, nkv, hd]
+    vals = torch.cat([v_cache, v[:, None]], dim=1).to(acc)
+    qg = q.to(act).to(acc).reshape(B, nkv, nq // nkv, hd)
+    scores = torch.einsum("bngh,btnh->bngt", qg, keys).float() * (1.0 / float(hd) ** 0.5)
+    scores = torch.where(ok[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    e = torch.exp(scores - scores.max(dim=-1, keepdim=True).values)
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(bf).to(acc)
+    attn = torch.einsum("bngt,btnh->bngh", probs, vals).float().reshape(B, nq * hd)
+    h = h + qmm(attn, w["wo"][l], s["wo"][l], acc, act)
+    gu = qmm(h, w["w_gu"][l], s["w_gu"][l], acc, act) * rms_scale(h, eps)
+    gt, up = gu[:, :Fi], gu[:, Fi:]
+    h = h + qmm(gt * torch.sigmoid(gt) * up, w["w_down"][l], s["w_down"][l], acc, act)
+    return h, k, v
+
+
+def bb_decode_step_q_reference(
+    qsb: dict,
+    config: CSMConfig,
+    h0: torch.Tensor,  # [B, D] f32
+    cos: torch.Tensor,  # [B, hd] f32
+    sin: torch.Tensor,
+    bias_w: torch.Tensor,  # [B, W] f32: 0 usable, NEG_INF masked
+    k_cache: torch.Tensor,  # [L, B, W, nkv, hd] bf16
+    v_cache: torch.Tensor,
+    acc: torch.dtype = torch.float32,
+    act: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the int8 step, the JAX emulator's int8 arithmetic
+    op for op in the standard head layout: an f32 residual; each pre-norm
+    product on bf16(h) times RMSNorm's per-row scale; RoPE in f32; attention
+    with bf16 q, K/V and probabilities, f32 scores and softmax; SwiGLU in
+    f32.  ``acc`` is the type products sum in; ``act`` the type activations
+    are rounded to before each product and the score dot (bf16; f32 gives a
+    faulty version that a check of the kernel must tell apart).  Returns
+    ``(normed_h [B, D] f32, c0_logits [B, Va] f32, new_k [L, B, nkv, hd]
+    bf16, new_v)``."""
+    h = h0.float()
+    new_k, new_v = [], []
+    for l in range(qsb["w"]["wqkv"].shape[0]):
+        h, k, v = bbq_layer_reference(qsb, config, l, h, cos, sin, bias_w, k_cache[l],
+                                      v_cache[l], acc, act)
+        new_k.append(k)
+        new_v.append(v)
+    rs = rms_scale(h, config.backbone.rms_norm_eps)
+    nh = h * rs * qsb["final_norm"]
+    logits = bf16_round(qmm(h, qsb["w"]["head"], qsb["s"]["head"], acc, act) * rs)
+    return nh, logits[:, :config.audio_vocab_size], torch.stack(new_k), torch.stack(new_v)
+
+
+def _lib_q():
+    lib = _build.load(KERNEL_Q)
+    fn = lib.bb_decode_q_step
+    fn.argtypes = [_F] * 27 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F]
+    fn.restype = ctypes.c_int
+    lib.bbq_part_floats.argtypes = [ctypes.c_int] * 7
+    lib.bbq_part_floats.restype = ctypes.c_longlong
+    lib.bbq_error_string.argtypes = [ctypes.c_int]
+    lib.bbq_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bb_decode_step_q(
+    qsb: dict,
+    config: CSMConfig,
+    h0: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    bias_w: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One int8 backbone decode step.  CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/bb_decode_q.cu`` (and raise on what it does
+    not take).  ``bb_decode_step_q.launches`` counts kernel launches."""
+    if h0.device.type == "cpu":
+        return bb_decode_step_q_reference(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
+    if h0.device.type != "cuda":
+        raise ValueError(f"bb_decode_step_q: unsupported device {h0.device}")
+    bcfg = config.backbone
+    w, s = qsb["w"], qsb["s"]
+    L = w["wqkv"].shape[0]
+    D, Fi = bcfg.hidden_size, bcfg.intermediate_size
+    nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
+    B, W = h0.shape[0], k_cache.shape[2]
+    n_head = w["head"].shape[1]
+    if not (1 <= B <= MAX_VALIDATED_B and nq % nkv == 0 and nq // nkv <= 8 and hd % 2 == 0):
+        raise ValueError(f"bb_decode_step_q kernel: unsupported B={B}, heads {nq}/{nkv}, hd={hd}")
+    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
+        raise ValueError("bb_decode_step_q kernel takes a bf16 KV cache")
+    if tuple(k_cache.shape) != (L, B, W, nkv, hd) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"bb_decode_step_q kernel: cache shape {tuple(k_cache.shape)}")
+    dev = h0.device
+    f32, bf = torch.float32, torch.bfloat16
+
+    def f(x):
+        return x.to(device=dev, dtype=f32).contiguous()
+
+    h0, cos, sin, bias_w = f(h0), f(cos), f(sin), f(bias_w)
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    lib = _lib_q()
+    part_floats = lib.bbq_part_floats(B, D, nq, nkv, hd, Fi, n_head)
+    if part_floats < 0:
+        raise RuntimeError(f"bb_decode_step_q: {lib.bbq_error_string(-part_floats).decode()}")
+    nh = torch.empty((B, D), dtype=f32, device=dev)
+    logits = torch.empty((B, n_head), dtype=f32, device=dev)
+    new_k = torch.empty((L, B, nkv, hd), dtype=bf, device=dev)
+    new_v = torch.empty_like(new_k)
+    sc = {n: torch.empty(shp, dtype=f32, device=dev) for n, shp in dict(
+        h=(B, D), xb=(B, D), rs=(B,), attn=(B, nq * hd), gated=(B, Fi), part=(part_floats,)).items()}
+    rc = lib.bb_decode_q_step(
+        h0.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias_w.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        w["wqkv"].data_ptr(), w["wo"].data_ptr(), w["w_gu"].data_ptr(), w["w_down"].data_ptr(),
+        w["head"].data_ptr(), s["wqkv"].data_ptr(), s["wo"].data_ptr(), s["w_gu"].data_ptr(),
+        s["w_down"].data_ptr(), s["head"].data_ptr(), qsb["final_norm"].data_ptr(),
+        nh.data_ptr(), logits.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+        sc["h"].data_ptr(), sc["xb"].data_ptr(), sc["rs"].data_ptr(), sc["attn"].data_ptr(),
+        sc["gated"].data_ptr(), sc["part"].data_ptr(), part_floats,
+        L, B, D, Fi, nq, nkv, hd, W, n_head, float(bcfg.rms_norm_eps),
+        _build.stream_handle(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"bb_decode_step_q launch failed: {lib.bbq_error_string(rc).decode()}")
+    bb_decode_step_q.launches += 1
+    return nh, logits[:, :config.audio_vocab_size], new_k, new_v
+
+
+bb_decode_step_q.launches = 0

@@ -1,0 +1,414 @@
+"""The fused codebook loop: the CUDA kernel ``csrc/fused_decoder.cu``
+(counterpart of ``csm_tpu/ops/fused_decoder.py::fused_decode_codebooks``)
+and its plain PyTorch version, with the bundle, sampling and noise they share.
+
+One call samples all codebooks of a frame for ``B <= 32`` streams: c0 from
+the backbone's logits, then the decoder prefill and one decoder pass per
+codebook, with int8 per-output-channel weights (W8A16, RMSNorm weights folded
+into the products), the head applied per codebook (bf16, or int8 with
+``head_bits=8``), top-k by bisection over bf16 bit patterns and Gumbel-max
+draws from a given noise table.  A ``forced`` prefix pins tokens (the
+speculative tier's re-drafts).  The plain version repeats the kernel's
+arithmetic op for op in PyTorch; it is what a CPU tensor gets.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from csm_tpu_torch.config import CSMConfig
+from csm_tpu_torch.ops import _build
+from csm_tpu_torch.ops.quant import qmm, quantize_per_channel
+from csm_tpu_torch.ops.rope import compute_rope_table
+from csm_tpu_torch.ops.sampling import gumbel_noise
+
+NEG_INF = -1e9
+KERNEL = "fused_decoder"
+# Largest batch one kernel call serves (the JAX package's MAX_CHUNKED_B);
+# larger batches take the plain PyTorch loop in generation.decode_frame.
+MAX_CHUNKED_B = 32
+_HEAD_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to the bf16 grid (nearest, ties to even)."""
+    return x.float().to(torch.bfloat16).float()
+
+
+def prepare_fused_decoder(params: dict, config: CSMConfig, head_bits: int = 16) -> dict:
+    """The kernel's bundle: per layer int8 ``wqkv = [wq|wk|wv]`` and ``w_gu =
+    [w_gate|w_up]`` with the RMSNorm weights folded in before quantization,
+    ``wo``, ``w_down`` (``"w"``, with f32 scales ``[L, 1, N]`` in ``"s"``);
+    the decoder RoPE tables; ``proj_emb = audio_embeddings @ projection`` in
+    the param dtype; the head ``[N-1, Dd, Va_pad]`` with the final norm folded
+    in, padded to a multiple of 128 columns, in the param dtype or (with
+    ``head_bits=8``) int8 with ``head_scale [N-1, 1, Va_pad]``."""
+    if head_bits not in (8, 16):
+        raise ValueError(f"head_bits must be 8 or 16, got {head_bits}")
+    dec = params["decoder"]["layers"]
+    attn_nw = dec["attn_norm"].float()[:, :, None]
+    mlp_nw = dec["mlp_norm"].float()[:, :, None]
+    out = {"w": {}, "s": {}}
+
+    def family(name, parts, fold=None):
+        qs = [quantize_per_channel(dec[p].float() * (fold if fold is not None else 1.0))
+              for p in parts]
+        out["w"][name] = torch.cat([q for q, _ in qs], dim=-1).contiguous()
+        out["s"][name] = torch.cat([s for _, s in qs], dim=-1).contiguous()
+
+    family("wqkv", ("wq", "wk", "wv"), attn_nw)
+    family("wo", ("wo",))
+    family("w_gu", ("w_gate", "w_up"), mlp_nw)
+    family("w_down", ("w_down",))
+    dev = params["projection"].device
+    out["cos"], out["sin"] = compute_rope_table(config.decoder, config.decoder_rope_positions, dev)
+    out["proj_emb"] = (params["audio_embeddings"] @ params["projection"]).contiguous()
+    Va = config.audio_vocab_size
+    Va_pad = -(-Va // 128) * 128
+    fnw = params["decoder"]["final_norm"].float()[None, :, None]
+    head = params["audio_head"].float() * fnw
+    if head_bits == 8:
+        hq, hs = quantize_per_channel(head)
+        out["audio_head"] = F.pad(hq, (0, Va_pad - Va)).contiguous()
+        out["head_scale"] = F.pad(hs, (0, Va_pad - Va), value=1.0).contiguous()
+    else:
+        out["audio_head"] = F.pad(head.to(params["audio_head"].dtype), (0, Va_pad - Va)).contiguous()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sampling and noise
+# ---------------------------------------------------------------------------
+
+
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Smallest index among each row's maxima, ``[B]`` int64."""
+    m = x.max(dim=-1, keepdim=True).values
+    idx = torch.arange(x.shape[-1], device=x.device).expand_as(x)
+    return torch.where(x == m, idx, torch.full_like(idx, 2 ** 30)).min(dim=-1).values
+
+
+def sample_row(
+    logits: torch.Tensor,  # [B, V] f32, bf16-valued
+    gumbel: torch.Tensor,  # [B, V] f32
+    temperature,  # scalar or [B, 1]
+    topk,  # int or [B, 1]
+    greedy: bool,
+) -> torch.Tensor:
+    """One Gumbel-top-k draw per row, ``[B]`` int64 (the JAX package's
+    ``_sample_row``): the k-th largest logit found exactly by a 16-step
+    bisection over order-preserving keys of the float bit patterns (exact on
+    bf16-rounded logits), ties at the k-th value kept, first-index argmax of
+    ``filtered / max(temperature, 1e-6) + gumbel``.  Greedy: first-index
+    argmax of the logits."""
+    if greedy:
+        return first_argmax(logits)
+    dev = logits.device
+    t = torch.as_tensor(temperature, dtype=torch.float32, device=dev)
+    t = t.reshape(-1, 1) if t.ndim else t
+    scaled = logits / torch.clamp(t, min=1e-6)
+    u = logits.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    ukey = torch.where(u >> 31 > 0, ~u & 0xFFFFFFFF, u | 0x80000000)
+    k = torch.as_tensor(topk, device=dev).long().reshape(-1, 1)
+    kth = torch.zeros((logits.shape[0], 1), dtype=torch.long, device=dev)
+    for b in range(16):
+        cand = kth | (1 << (31 - b))
+        cnt = (ukey >= cand).sum(dim=-1, keepdim=True)
+        kth = torch.where(cnt >= k, cand, kth)
+    filtered = torch.where(ukey >= kth, scaled, torch.full_like(scaled, NEG_INF))
+    return first_argmax(filtered + gumbel)
+
+
+def build_frame_gumbel(
+    config: CSMConfig, generator: Optional[torch.Generator], B: int, greedy: bool, device
+) -> torch.Tensor:
+    """One frame's noise table ``[N, B, Va]``: row ``i`` is codebook ``i``'s,
+    drawn once from ``generator`` and shared by every tier (zero when
+    greedy)."""
+    shape = (config.audio_num_codebooks, B, config.audio_vocab_size)
+    if greedy:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return gumbel_noise(shape, generator, device)
+
+
+def row_params(B: int, Va: int, temperature, topk, gumbel: torch.Tensor,
+               greedy_rows: Optional[torch.Tensor] = None):
+    """Per-row ``temperature [B]`` f32, ``topk [B]`` int32 in [1, Va] and the
+    noise table.  ``greedy_rows [B]`` makes the marked rows deterministic:
+    top-1 with their noise zeroed, which is the greedy argmax."""
+    dev = gumbel.device
+    temp = torch.as_tensor(temperature, dtype=torch.float32, device=dev).reshape(-1).expand(B)
+    k = torch.as_tensor(topk, device=dev).long().reshape(-1).expand(B).clamp(1, Va)
+    if greedy_rows is not None:
+        gr = torch.as_tensor(greedy_rows, device=dev).reshape(B).bool()
+        k = torch.where(gr, torch.ones_like(k), k)
+        gumbel = gumbel * (~gr).float()[None, :, None]
+    return temp.contiguous(), k.to(torch.int32).contiguous(), gumbel
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+
+
+def rms_scale(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm's per-row scale ``rsqrt(mean(x^2) + eps)``, applied to the
+    outputs of products whose weights carry the norm weight."""
+    return torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """``x [B, T, H, hd]`` by ``cos/sin [T, hd]``, f32, rotate-half."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return x * cos[:, None, :] + rotated * sin[:, None, :]
+
+
+def _decoder_pass(qdec, config, h, pos0: int, kv_k, kv_v, acc, act):
+    """One pass of the decoder over ``h [B, T, Dd]`` (f32) at positions
+    ``pos0..``, writing the bf16 K/V scratch ``[L, B, P, nkv, hd]`` in
+    place; returns each stream's last row, final-normed, ``[B, Dd]``."""
+    dcfg = config.decoder
+    eps = dcfg.rms_norm_eps
+    nq, nkv, hd, Fi = (dcfg.num_attention_heads, dcfg.num_key_value_heads, dcfg.head_dim,
+                       dcfg.intermediate_size)
+    B, T, _ = h.shape
+    g = nq // nkv
+    w, s = qdec["w"], qdec["s"]
+    cos, sin = qdec["cos"][pos0:pos0 + T], qdec["sin"][pos0:pos0 + T]
+    n_keys = pos0 + T
+    qpos = pos0 + torch.arange(T, device=h.device)[:, None]
+    causal = torch.arange(n_keys, device=h.device)[None, :] <= qpos  # [T, n_keys]
+    for l in range(w["wqkv"].shape[0]):
+        qkv = qmm(h, w["wqkv"][l], s["wqkv"][l], acc, act) * rms_scale(h, eps)
+        q = _rope(qkv[..., :nq * hd].reshape(B, T, nq, hd), cos, sin)
+        k = _rope(qkv[..., nq * hd:(nq + nkv) * hd].reshape(B, T, nkv, hd), cos, sin)
+        v = qkv[..., (nq + nkv) * hd:].reshape(B, T, nkv, hd)
+        kv_k[l, :, pos0:pos0 + T] = k.to(torch.bfloat16)
+        kv_v[l, :, pos0:pos0 + T] = v.to(torch.bfloat16)
+        keys = kv_k[l, :, :n_keys].to(acc)  # [B, n_keys, nkv, hd]
+        vals = kv_v[l, :, :n_keys].to(acc)
+        qg = q.to(act).to(acc).reshape(B, T, nkv, g, hd)
+        scores = torch.einsum("btngh,bsnh->bngts", qg, keys).float() * (1.0 / hd ** 0.5)
+        scores = torch.where(causal, scores, torch.full_like(scores, NEG_INF))
+        e = torch.exp(scores - scores.max(dim=-1, keepdim=True).values)
+        probs = (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16).to(acc)
+        attn = torch.einsum("bngts,bsnh->btngh", probs, vals).float().reshape(B, T, nq * hd)
+        h = h + qmm(attn, w["wo"][l], s["wo"][l], acc, act)
+        gu = qmm(h, w["w_gu"][l], s["w_gu"][l], acc, act) * rms_scale(h, eps)
+        gt, up = gu[..., :Fi], gu[..., Fi:]
+        h = h + qmm(gt * torch.sigmoid(gt) * up, w["w_down"][l], s["w_down"][l], acc, act)
+    h_last = h[:, -1]
+    return h_last * rms_scale(h_last, eps)
+
+
+def _head_logits(qdec, config, h_last, i: int, acc, act) -> torch.Tensor:
+    """Codebook ``i``'s logits ``[B, Va_pad]`` from head slice ``i - 1``:
+    bf16-rounded, padded columns ``NEG_INF``."""
+    head = qdec["audio_head"][i - 1]
+    if "head_scale" in qdec:
+        lg = qmm(h_last, head, qdec["head_scale"][i - 1], acc, act)
+    else:
+        x = h_last.to(act if head.dtype == torch.bfloat16 else head.dtype)
+        lg = (x.to(acc) @ head.to(acc)).float()
+    lg = bf16_round(lg)
+    col = torch.arange(lg.shape[-1], device=lg.device)
+    return torch.where(col < config.audio_vocab_size, lg, torch.full_like(lg, NEG_INF))
+
+
+def decode_codebooks_reference(
+    qdec: dict,
+    config: CSMConfig,
+    x0: torch.Tensor,  # [B, Dd] f32: proj(last_h)
+    c0_logits: torch.Tensor,  # [B, Va] f32
+    gumbel: torch.Tensor,  # [N, B, Va] f32
+    temperature: torch.Tensor,  # [B] f32
+    topk: torch.Tensor,  # [B] int, in [1, Va]
+    greedy: bool,
+    forced: torch.Tensor,  # [B, N] int, -1 = draw
+    acc: torch.dtype = torch.float32,
+    act: torch.dtype = torch.bfloat16,
+):
+    """The plain version of the kernel, batched: returns ``(samples [B, N]
+    int64, logits [N, B, Va_pad] f32, draws [B, N] int64)``, where row 0 of
+    the logits is the masked c0 input and ``draws`` are the picks before
+    ``forced`` overrides them.  ``acc`` is the type the products sum in;
+    ``act`` the type activations are rounded to before each product and
+    the attention dots (bf16; f32 gives a faulty version that a check of the
+    kernel must tell apart)."""
+    N = config.audio_num_codebooks
+    Va = config.audio_vocab_size
+    dcfg = config.decoder
+    B, dev = x0.shape[0], x0.device
+    Va_pad = qdec["audio_head"].shape[-1]
+    temp_v, topk_v = temperature.reshape(B, 1), topk.reshape(B, 1)
+    gum = F.pad(gumbel.float(), (0, Va_pad - Va))
+    emb = qdec["proj_emb"]
+    L = qdec["w"]["wqkv"].shape[0]
+    shape = (L, B, N, dcfg.num_key_value_heads, dcfg.head_dim)
+    kv_k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    kv_v = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    forced = forced.long()
+
+    samples, draws, logits = [], [], []
+
+    def take(lg, i):
+        d = sample_row(lg, gum[i], temp_v, topk_v, greedy)
+        c = torch.where(forced[:, i] >= 0, forced[:, i], d)
+        logits.append(lg)
+        draws.append(d)
+        samples.append(c)
+        return c
+
+    lg0 = F.pad(bf16_round(c0_logits), (0, Va_pad - Va), value=NEG_INF)
+    c = take(lg0, 0)
+    h = torch.stack([x0.float(), emb[c].float()], dim=1)  # [B, 2, Dd]
+    h_last = _decoder_pass(qdec, config, h, 0, kv_k, kv_v, acc, act)
+    for i in range(1, N):
+        c = take(_head_logits(qdec, config, h_last, i, acc, act), i)
+        if i < N - 1:
+            h_last = _decoder_pass(qdec, config, emb[c + i * Va].float()[:, None], i + 1,
+                                   kv_k, kv_v, acc, act)
+    return torch.stack(samples, 1), torch.stack(logits), torch.stack(draws, 1)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper
+# ---------------------------------------------------------------------------
+
+_F = ctypes.c_void_p
+
+
+def _lib():
+    lib = _build.load(KERNEL)
+    lib.fused_decode.argtypes = [_F] * 29 + [ctypes.c_longlong] + [_F] * 3 + [ctypes.c_int] * 14 + [
+        ctypes.c_float, _F]
+    lib.fused_decode.restype = ctypes.c_int
+    lib.fd_part_floats.argtypes = [ctypes.c_int] * 9
+    lib.fd_part_floats.restype = ctypes.c_longlong
+    lib.fd_error_string.argtypes = [ctypes.c_int]
+    lib.fd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_decode_codebooks(
+    qdec: dict,
+    config: CSMConfig,
+    x0: torch.Tensor,
+    c0_logits: torch.Tensor,
+    gumbel: torch.Tensor,
+    temperature: torch.Tensor,
+    topk: torch.Tensor,
+    greedy: bool,
+    forced: Optional[torch.Tensor] = None,
+    return_logits: bool = False,
+):
+    """All codebooks of one frame, ``[B, N]`` int64.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (and raise on what it does
+    not take).  ``temperature [B]``, ``topk [B]`` in [1, Va]; ``forced [B, N]``
+    pins tokens (-1 draws).  ``return_logits`` also returns the logits
+    ``[N, B, Va_pad]`` and the draws before forcing ``[B, N]``.
+    ``fused_decode_codebooks.launches`` counts kernel launches."""
+    B, dev = x0.shape[0], x0.device
+    N = config.audio_num_codebooks
+    if forced is None:
+        forced = torch.full((B, N), -1, dtype=torch.long, device=dev)
+    if dev.type == "cpu":
+        samples, logits, draws = decode_codebooks_reference(
+            qdec, config, x0, c0_logits, gumbel, temperature, topk, greedy, forced)
+        return (samples, logits, draws) if return_logits else samples
+    if dev.type != "cuda":
+        raise ValueError(f"fused_decode_codebooks: unsupported device {dev}")
+    dcfg = config.decoder
+    Va = config.audio_vocab_size
+    L, D, Fi = qdec["w"]["wqkv"].shape[0], dcfg.hidden_size, dcfg.intermediate_size
+    nq, nkv, hd = dcfg.num_attention_heads, dcfg.num_key_value_heads, dcfg.head_dim
+    head = qdec["audio_head"]
+    Va_pad = head.shape[-1]
+    head_kind = _HEAD_KINDS.get(head.dtype)
+    emb = qdec["proj_emb"]
+    if not 1 <= B <= MAX_CHUNKED_B:
+        raise ValueError(f"fused_decode_codebooks kernel: unsupported B={B}")
+    if head_kind is None or emb.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_decode_codebooks kernel: head {head.dtype}, embeddings {emb.dtype}")
+    f32, i32 = torch.float32, torch.int32
+
+    def c(x, dtype):
+        return x.to(device=dev, dtype=dtype).contiguous()
+
+    temp, k, frc = c(temperature, f32), c(topk, i32), c(forced, i32)
+    x0, c0 = c(x0, f32), c(bf16_round(c0_logits), f32)
+    gum = c(gumbel, f32)
+    w, s = qdec["w"], qdec["s"]
+    hs = qdec.get("head_scale", torch.ones((1,), dtype=f32, device=dev))
+    lib = _lib()
+    NP = N
+    part_floats = lib.fd_part_floats(B, D, nq, nkv, hd, Fi, Va_pad, NP, head_kind)
+    if part_floats < 0:
+        raise RuntimeError(f"fused_decode_codebooks: {lib.fd_error_string(-part_floats).decode()}")
+    R = 2 * B
+    samples = torch.empty((B, N), dtype=i32, device=dev)
+    out_logits = torch.empty((N, B, Va_pad), dtype=f32, device=dev) if return_logits else None
+    out_draws = torch.empty((B, N), dtype=i32, device=dev) if return_logits else None
+    scratch = dict(
+        h=(R, D), xb=(R, D), rs=(R,), attn=(R, nq * hd), gated=(R, Fi), hx=(B, D),
+        part=(part_floats,),
+    )
+    sc = {n: torch.empty(shp, dtype=f32, device=dev) for n, shp in scratch.items()}
+    kc = torch.empty((L, B, nkv, NP, hd), dtype=torch.bfloat16, device=dev)
+    vc = torch.empty_like(kc)
+    bar = torch.zeros((2,), dtype=i32, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    rc = lib.fused_decode(
+        temp.data_ptr(), k.data_ptr(), frc.data_ptr(), x0.data_ptr(), c0.data_ptr(),
+        w["wqkv"].data_ptr(), w["wo"].data_ptr(), w["w_gu"].data_ptr(), w["w_down"].data_ptr(),
+        s["wqkv"].data_ptr(), s["wo"].data_ptr(), s["w_gu"].data_ptr(), s["w_down"].data_ptr(),
+        qdec["cos"].data_ptr(), qdec["sin"].data_ptr(), head.data_ptr(), hs.data_ptr(),
+        gum.data_ptr(), emb.data_ptr(), samples.data_ptr(), ptr(out_logits), ptr(out_draws),
+        sc["h"].data_ptr(), sc["xb"].data_ptr(), sc["rs"].data_ptr(), sc["attn"].data_ptr(),
+        sc["gated"].data_ptr(), sc["hx"].data_ptr(), sc["part"].data_ptr(), part_floats,
+        kc.data_ptr(), vc.data_ptr(), bar.data_ptr(),
+        B, N, Va, Va_pad, D, L, nq, nkv, hd, Fi, NP, int(greedy), head_kind,
+        int(emb.dtype == torch.bfloat16), float(dcfg.rms_norm_eps), _build.stream_handle(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_codebooks launch failed: {lib.fd_error_string(rc).decode()}")
+    fused_decode_codebooks.launches += 1
+    samples = samples.long()
+    if return_logits:
+        return samples, out_logits, out_draws.long()
+    return samples
+
+
+fused_decode_codebooks.launches = 0
+
+
+def decode_frame_fused(
+    params: dict,
+    qdec: dict,
+    config: CSMConfig,
+    last_h: torch.Tensor,  # [B, D]
+    c0_logits: torch.Tensor,  # [B, Va]
+    gumbel: torch.Tensor,  # [N, B, Va]: this frame's noise table
+    temperature,
+    topk,
+    greedy: bool,
+    *,
+    greedy_rows: Optional[torch.Tensor] = None,  # [B] bool
+    forced: Optional[torch.Tensor] = None,  # [B, N], -1 = draw
+) -> torch.Tensor:
+    """One frame's codebooks ``[B, N]`` through :func:`fused_decode_codebooks`.
+    ``temperature`` / ``topk`` may be per-row; ``greedy_rows`` as in
+    :func:`row_params`."""
+    temp, k, gumbel = row_params(last_h.shape[0], config.audio_vocab_size, temperature, topk,
+                                 gumbel, greedy_rows)
+    x0 = (last_h @ params["projection"]).float()
+    return fused_decode_codebooks(qdec, config, x0, c0_logits.float(), gumbel, temp, k, greedy,
+                                  forced=forced)

@@ -14,7 +14,10 @@ import torch
 
 from csm_tpu_torch import CSMConfig, CSMModel
 from csm_tpu_torch.config import LlamaConfig
+import torch.nn.functional as F
+
 from csm_tpu_torch.ops import bb_kernel
+from csm_tpu_torch.ops import fused_decoder as fd
 from csm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
 pytestmark = pytest.mark.gpu
@@ -99,6 +102,102 @@ def test_bb_kernel_matches_plain_version(cuda, B):
         a, r = a.float(), r.float()
         assert a.shape == r.shape and torch.isfinite(a).all(), name
         assert ((a - r).norm() / r.norm()).item() <= 1e-2, name
+
+
+def _rel_rms(a, r) -> float:
+    return ((a.float() - r.float()).norm() / r.float().norm()).item()
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_bb_q_kernel_matches_plain_version(cuda, B):
+    """The int8 step: same f32 arithmetic in another summation order, so the
+    f32 normed hidden within 1e-3 relative RMS and at most 2 % (K/V) and
+    10 % (logits) of the bf16 values one rounding apart."""
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
+    qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=8)
+    bc = cfg.backbone
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    W = 40
+    h0 = (0.1 * torch.randn((B, bc.hidden_size), generator=gen, device=cuda)).bfloat16().float()
+    cos = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
+    sin = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
+    bias = torch.where(torch.rand((B, W), generator=gen, device=cuda) < 0.6, 0.0, -1e9)
+    shape = (bc.num_hidden_layers, B, W, bc.num_key_value_heads, bc.head_dim)
+    kc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    args = (qsb, cfg, h0, cos, sin, bias.float(), kc, vc)
+    before = bb_kernel.bb_decode_step_q.launches
+    out = bb_kernel.bb_decode_step(*args)
+    ref = bb_kernel.bb_decode_step_q_reference(*args)
+    torch.cuda.synchronize()
+    assert bb_kernel.bb_decode_step_q.launches == before + 1
+    for a, r in zip(out, ref):
+        assert a.shape == r.shape and torch.isfinite(a.float()).all()
+    assert _rel_rms(out[0], ref[0]) <= 1e-3
+    assert (out[1] != ref[1]).float().mean().item() <= 0.1
+    for a, r in zip(out[2:], ref[2:]):
+        assert (a != r).float().mean().item() <= 0.02
+
+
+@pytest.mark.parametrize("head_bits", [16, 8])
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_fused_kernel_matches_plain_version_teacher_forced(cuda, B, head_bits):
+    """Forced onto the plain version's tokens: at most 5 % of the kernel's
+    bf16 logits one rounding apart from the plain version's (relative RMS
+    within 5e-3), the forced tokens returned, and every draw before forcing
+    equal to the plain sampler on the kernel's own logits, greedy and
+    sampled."""
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=3, device=cuda)
+    qdec = fd.prepare_fused_decoder(model.params, cfg, head_bits=head_bits)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    N, Va = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    last_h = torch.randn((B, cfg.backbone.hidden_size), generator=gen, device=cuda).bfloat16()
+    x0 = (last_h @ model.params["projection"]).float()
+    c0 = (last_h @ model.params["codebook0_head"]).float()
+    temp = torch.full((B,), 0.8, device=cuda)
+    topk = torch.full((B,), 5, dtype=torch.int32, device=cuda)
+    for greedy in (True, False):
+        gum = fd.build_frame_gumbel(cfg, gen, B, greedy, cuda)
+        args = (qdec, cfg, x0, c0, gum, temp, topk, greedy)
+        forced = fd.decode_codebooks_reference(*args, torch.full((B, N), -1, device=cuda))[0]
+        _, ref_lg, _ = fd.decode_codebooks_reference(*args, forced)
+        before = fd.fused_decode_codebooks.launches
+        samples, lg, draws = fd.fused_decode_codebooks(*args, forced=forced, return_logits=True)
+        torch.cuda.synchronize()
+        assert fd.fused_decode_codebooks.launches == before + 1
+        assert torch.equal(samples, forced)
+        a, r = lg[..., :Va], ref_lg[..., :Va]
+        assert torch.isfinite(a).all()
+        assert (a != r).float().mean().item() <= 0.05 and _rel_rms(a, r) <= 5e-3
+        gp = F.pad(gum, (0, lg.shape[-1] - Va))
+        mine = torch.stack([fd.sample_row(lg[i], gp[i], temp[:, None], topk[:, None], greedy)
+                            for i in range(N)], dim=1)
+        assert torch.equal(mine, draws)
+
+
+def test_quantize_and_exact_generate_run_the_kernels(cuda):
+    """quantize(): one int8 backbone launch for each frame after the first
+    and one fused-decoder launch per frame; exact(): the exact backbone
+    kernel and at least one draft launch per frame."""
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=2, device=cuda)
+    rng = np.random.default_rng(1)
+    ids = np.zeros((3, 12, cfg.frame_width), np.int64)
+    ids[..., :32] = rng.integers(1, cfg.audio_vocab_size, (3, 12, 32))
+    mask = (ids > 0).astype(np.float32)
+    kw = dict(max_new_frames=4, greedy=True, stop_on_all_zeros=False)
+    fd.fused_decode_codebooks.launches = 0
+    bb_kernel.bb_decode_step.launches = bb_kernel.bb_decode_step_q.launches = 0
+    quantized = model.quantize().generate(ids, mask, **kw)
+    assert bb_kernel.bb_decode_step_q.launches == 3 and fd.fused_decode_codebooks.launches == 4
+    fd.fused_decode_codebooks.launches = 0
+    exact = model.exact().generate(ids, mask, **kw)
+    assert bb_kernel.bb_decode_step.launches == 3 and fd.fused_decode_codebooks.launches >= 4
+    for frames in (quantized, exact):
+        assert frames.shape == (3, 4, 32)
+        assert 0 <= frames.min() and frames.max() < cfg.audio_vocab_size
 
 
 def test_generate_runs_both_kernels(cuda):

@@ -100,6 +100,6 @@ def test_unported_tiers_raise():
 
     model = CSMModel(CSMConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.quantize()
+        model.quantize(bits=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_streamed_backbone(model.params, model.config, bits=8)
+        prepare_streamed_backbone(model.params, model.config, bits=4)
