@@ -5,8 +5,9 @@
 
 Phases, each printed as it runs; any failure exits non-zero:
 
-1. the card's name and power limit, then the four kernels built from
-   ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started together);
+1. the card's name and power limit, then the kernels built from the five
+   sources in ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started
+   together);
 2. the flash prefill kernel held against its plain version at CSM-1B prefill
    shapes (B = 1 and 8 in bf16 and B = 8 in fp32, S = 256, T = 384, 32/8
    heads, hd 64, left padding);
@@ -32,7 +33,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``torch.profiler`` breakdown of 8-frame ``quantize()`` runs at B = 1 and 8
    and an ``exact()`` run at B = 1; then the committed tiny golden fixture on
    the card, in fp32 through the flash kernel, against its frozen reference
-   tokens.
+   tokens;
+7. the flash forward with log-sum-exp and the two backward kernels against
+   their plain versions at CSM-1B training shapes (B = 1, S = 2048 and B = 4,
+   S = 512, 32/8 heads, hd 64, left-padded rows, bf16 and fp32): lse on live
+   rows, relative RMS of dq / dk / dv, dead rows exactly zero, two runs
+   bitwise equal; times beside bounds, plain versions and SDPA;
+8. training at full width: 4 steps of a random bf16 CSM-1B (seed 0) on a
+   2048-frame synthetic conversation with the flash kernels and remat
+   "auto", launches read around each step, the first step also through plain
+   attention (gross gate), peak memory, a ``torch.profiler`` breakdown of a
+   step; then ``CSMTrainer`` at S = 256 (accum 2, 2 steps, a checkpoint, a
+   resume onto other weights, evaluation before and after);
+9. sharpened weights: a 300-step pattern overfit of a bf16 CSM-1B, then
+   teacher-forced greedy agreement of ``exact()`` and ``quantize()`` with the
+   plain path over 24 frames, the plain path's smallest c0 top-2 gap (exact()
+   gated at 100 % when it exceeds 0.5) and the speculative rounds per frame.
+
+Phases 7-9 print their seconds.
 
 The full record of the run goes to ``chiprun_out/chip_smoke.json``.
 
@@ -42,7 +60,9 @@ errors, launches on the main path); the last line is the device line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -56,7 +76,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # tensor cores; fp32 outside them.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-KERNELS = ("flash_fwd", "bb_decode", "bb_decode_q", "fused_decoder")
+KERNELS = ("flash_fwd", "flash_bwd", "bb_decode", "bb_decode_q", "fused_decoder")
 
 
 FAILURES = []
@@ -618,10 +638,10 @@ def prompt(config, B: int, S: int, seed: int):
 def launch_counters():
     """The wrappers whose ``launches`` count each port kernel's launches."""
     from csm_tpu_torch.ops.bb_kernel import bb_decode_step, bb_decode_step_q
-    from csm_tpu_torch.ops.flash_attention import flash_attention
+    from csm_tpu_torch.ops.flash_attention import flash_fwd
     from csm_tpu_torch.ops.fused_decoder import fused_decode_codebooks
 
-    return {"flash_fwd": flash_attention, "bb_decode": bb_decode_step,
+    return {"flash_fwd": flash_fwd, "bb_decode": bb_decode_step,
             "bb_decode_q": bb_decode_step_q, "fused_decoder": fused_decode_codebooks}
 
 
@@ -769,6 +789,8 @@ def end_to_end(model, results):
 # reduce_kernel among them) are named inside at::.
 PORT_KERNELS = {
     "flash_fwd": ("flash_fwd_kernel",),
+    "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+    "flash_bwd_dkv": ("flash_bwd_dkv_kernel",),
     "bb_decode": ("gemm_partial_kernel", "rope_attn_kernel", "rmsnorm_kernel",
                   "reduce_round_kernel", "reduce_residual_kernel", "reduce_swiglu_kernel"),
     "bb_decode_q": ("gemm_kernel", "init_kernel", "attn_kernel", "residual_kernel",
@@ -777,7 +799,8 @@ PORT_KERNELS = {
 }
 # The groups each tier's profile must show.
 PROFILED = {"exact": ("flash_fwd", "bb_decode", "fused_decoder"),
-            "quantize": ("flash_fwd", "bb_decode_q", "fused_decoder")}
+            "quantize": ("flash_fwd", "bb_decode_q", "fused_decoder"),
+            "train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 _PORT_NAME = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
 
 
@@ -788,6 +811,44 @@ def port_kernel(name: str):
         if m and m.group(1) in kernels:
             return group, m.group(1)
     return None
+
+
+def device_breakdown(prof, required, label: str, wall_ms: float, units: int, unit: str) -> dict:
+    """Device time by kernel from a torch.profiler run, split into the port's
+    kernel groups and everything else; fails if a kernel of the ``required``
+    groups shows no device time under its exact name."""
+    import torch
+
+    by_name = {}
+    for e in prof.events():
+        # Annotations (such as the optimizer's step range) span kernels that
+        # are counted on their own.
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    busy = sum(ms for _, ms in by_name.values())
+    groups = {k: [0, 0.0] for k in (*PORT_KERNELS, "other")}
+    seen = set()
+    for name, (n, ms) in by_name.items():
+        hit = port_kernel(name)
+        g = hit[0] if hit else "other"
+        if hit:
+            seen.add(hit[1])
+        groups[g][0] += n
+        groups[g][1] += ms
+    missing = {k for g in required for k in PORT_KERNELS[g]} - seen
+    check(not missing, f"profile {label}: no device time under the port's kernel names {sorted(missing)}")
+    n_kernels = sum(n for n, _ in by_name.values())
+    log(f"profile {label}: wall {wall_ms:.1f} ms under the profiler, device busy {busy:.1f} ms "
+        f"({busy / wall_ms:.1%}), {n_kernels / units:.0f} kernels per {unit}; device ms "
+        "(launches) by group " + ", ".join(f"{k} {ms:.2f} ({n})" for k, (n, ms) in groups.items()))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (n, ms) in top:
+        log(f"  {ms:8.2f} ms {n:6d}x  {name[:110]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                device_ms_by_group={k: ms for k, (_, ms) in groups.items()},
+                launches_by_group={k: n for k, (n, _) in groups.items()}, n_kernels=n_kernels,
+                top=[dict(name=k[:160], count=n, ms=ms) for k, (n, ms) in top])
 
 
 def profile_generate(model, ids, mask, n_frames: int, tier: str) -> dict:
@@ -805,37 +866,11 @@ def profile_generate(model, ids, mask, n_frames: int, tier: str) -> dict:
         model.generate(ids, mask, max_new_frames=n_frames, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, ms = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
-    busy = sum(ms for _, ms in by_name.values())
-    groups = {k: [0, 0.0] for k in (*PORT_KERNELS, "other")}
-    seen = set()
-    for name, (n, ms) in by_name.items():
-        hit = port_kernel(name)
-        g = hit[0] if hit else "other"
-        if hit:
-            seen.add(hit[1])
-        groups[g][0] += n
-        groups[g][1] += ms
-    missing = {k for g in PROFILED[tier] for k in PORT_KERNELS[g]} - seen
-    check(not missing, f"profile {tier}: no device time under the port's kernel names {sorted(missing)}")
     B = ids.shape[0]
-    n_kernels = sum(n for n, _ in by_name.values())
-    log(f"profile {tier} B={B}, {n_frames} frames: wall {wall_ms:.1f} ms under the profiler, "
-        f"device busy {busy:.1f} ms ({busy / wall_ms:.1%}), {n_kernels / n_frames:.0f} kernels "
-        "per frame; device ms (launches) by group "
-        + ", ".join(f"{k} {ms:.2f} ({n})" for k, (n, ms) in groups.items()))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    for name, (n, ms) in top:
-        log(f"  {ms:8.2f} ms {n:6d}x  {name[:110]}")
-    return dict(tier=tier, frames=n_frames, B=B, wall_ms=wall_ms, device_busy_ms=busy,
-                device_ms_by_group={k: ms for k, (_, ms) in groups.items()},
-                launches_by_group={k: n for k, (n, _) in groups.items()}, n_kernels=n_kernels,
-                kernels_per_frame=n_kernels / n_frames,
-                top=[dict(name=k[:160], count=n, ms=ms) for k, (n, ms) in top])
+    rec = device_breakdown(prof, PROFILED[tier], f"{tier} B={B}, {n_frames} frames", wall_ms,
+                           n_frames, "frame")
+    return dict(tier=tier, frames=n_frames, B=B, kernels_per_frame=rec["n_kernels"] / n_frames,
+                **rec)
 
 
 def _leaves(tree, prefix=""):
@@ -854,12 +889,12 @@ def golden_on_card():
     import numpy as np
 
     from csm_tpu_torch import CSMModel
-    from csm_tpu_torch.ops.flash_attention import flash_attention
+    from csm_tpu_torch.ops.flash_attention import flash_fwd
 
     fix = os.path.join(REPO, "tests", "fixtures", "tiny_golden")
     model = CSMModel.from_pretrained(fix)
     data = np.load(os.path.join(fix, "golden.npz"))
-    flash_attention.launches = 0
+    flash_fwd.launches = 0
     out = model.forward(data["input_ids"], data["attention_mask"].astype(np.float32),
                         labels=data["labels"])
     np.testing.assert_allclose(out.logits.cpu().numpy(), data["c0_logits_last"],
@@ -870,10 +905,446 @@ def golden_on_card():
                             stop_on_all_zeros=False, greedy=True)
     same = np.array_equal(frames, data["greedy_frames"])
     check(same, "tiny golden greedy frames differ on the card")
-    launches = flash_attention.launches
+    launches = flash_fwd.launches
     check(launches > 0, "the fp32 tiny golden forward and prefill did not run the flash kernel")
     log(f"tiny golden fixture on the card (fp32, flash kernel launched {launches} times): "
         f"logits and loss match, greedy frames match: {same}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: flash backward kernels
+# ---------------------------------------------------------------------------
+
+# Limits of the backward kernels against the plain backward run on the
+# kernel's own forward output and log-sum-exp, per operand type: relative RMS
+# of dq / dk / dv.  Both round dS and P to the operand type at the same
+# points and sum each product in fp32 in key (or query) order with FMAs, as
+# cuBLAS does along K: the readings on an H100 are exactly 0 (PERF.md).  The
+# limits leave room for another summation order (a flipped bf16 rounding is
+# one step of a value); a wrong mask or head gives 0.1-1.
+FLASH_BWD_TOL = {"bfloat16": 2e-3, "float32": 1e-5}
+# max |lse - plain lse| on live rows: fp32 sums of bf16-exact products.
+FLASH_LSE_TOL = 1e-4
+# (B, S) at CSM-1B training shapes; row b left-padded by 16 + 100 b frames.
+FLASH_BWD_SHAPES = ((1, 2048), (4, 512))
+
+
+def check_flash_bwd(B: int, S: int, gen, dtype_name: str) -> dict:
+    """K3 with LSE, K5a and K5b against their plain versions: lse on live
+    rows, relative RMS of the gradients, dead rows exactly zero, two runs
+    bitwise equal; then times, bounds and the SDPA yardsticks."""
+    import torch
+
+    from csm_tpu_torch.ops import flash_attention as fa
+
+    nq, nkv, hd = 32, 8, 64
+    g = nq // nkv
+    dev, dtype = "cuda", getattr(torch, dtype_name)
+    tag = f"flash bwd {dtype_name} B={B} S={S}"
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    valid = torch.ones((B, S), dtype=torch.int32, device=dev)
+    for b in range(B):
+        valid[b, :16 + 100 * b] = 0
+    live = valid.cumsum(1) > 0  # rows that see a valid key
+
+    out, lse = fa.flash_fwd(q, k, v, valid, True, with_lse=True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, valid, True, return_lse=True)
+    lse_err = (lse - ref_lse).abs().transpose(1, 2)[live].max().item()
+    dead_lse = bool((lse.transpose(1, 2)[~live] == fa.NEG_INF).all())
+    out_err = (out.float() - ref_out.float()).abs()[live].max().item()
+    check(lse_err <= FLASH_LSE_TOL and dead_lse, f"{tag}: lse error {lse_err:.3e}, dead rows "
+          f"exactly NEG_INF {dead_lse}")
+    check(out_err <= FLASH_TOL[dtype_name], f"{tag}: forward output error {out_err:.3e}")
+
+    got = fa.flash_bwd(q, k, v, valid, out, lse, do)
+    again = fa.flash_bwd(q, k, v, valid, out, lse, do)
+    want = fa.flash_attention_bwd_reference(q, k, v, valid, out, lse, do)
+    masked = fa.flash_bwd(q, k, v, valid, out, lse, do * live[:, :, None, None].to(dtype))
+    torch.cuda.synchronize()
+    rel = {n: rel_rms(a.float(), w.float()) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    max_abs = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    dead_zero = bool((got[0][~live] == 0).all()) and all(
+        torch.equal(a, b) for a, b in zip(got[1:], masked[1:]))
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+    tol = FLASH_BWD_TOL[dtype_name]
+    log(f"{tag}: lse max err (live) {lse_err:.3e}, dead rows NEG_INF {dead_lse}; relative RMS vs "
+        f"plain " + ", ".join(f"{n} {x:.3e}" for n, x in rel.items()) + f" (limit {tol}); "
+        f"dead rows exactly zero {dead_zero}; two runs bitwise equal {same}")
+    for n, x in rel.items():
+        check(finite and x <= tol, f"{tag}: {n} relative RMS {x:.3e} > {tol}")
+    check(dead_zero, f"{tag}: dead rows do not contribute exactly zero")
+    check(same, f"{tag}: two runs of the backward kernels differ")
+
+    delta = fa._delta(out, do)
+    ms = dict(
+        fwd=cuda_ms(lambda: fa.flash_fwd(q, k, v, valid, True, with_lse=True), iters=5),
+        dq=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, valid, do, lse, delta), iters=5),
+        dkv=cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, valid, do, lse, delta), iters=5),
+    )
+    plain = dict(
+        fwd=cuda_ms(lambda: fa.flash_attention_reference(q, k, v, valid, True, return_lse=True),
+                    iters=2, warmup=1),
+        bwd=cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, valid, out, lse, do),
+                    iters=2, warmup=1),
+    )
+    # SDPA on the same inputs: K/V expanded over the group, the same mask as
+    # an additive NEG_INF bias (finite, so dead rows stay finite).
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ok = valid.bool()[:, None, None, :] & torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    bias = torch.where(ok, 0.0, fa.NEG_INF).to(dtype)
+    qh = q.transpose(1, 2).detach().requires_grad_(True)
+    kh = k.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_(True)
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_(True)
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=bias), iters=5)
+    o = sdpa(qh, kh, vh, attn_mask=bias)
+    go = do.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qh, kh, vh), go, retain_graph=True),
+                      iters=5)
+    del o, qh, kh, vh, bias
+
+    # What this data needs: each live (row, valid key <= row) pair per head;
+    # q, dO and out of live rows, k and v of valid keys, lse and delta of
+    # live rows, the validity flags, the outputs whole.
+    pairs = int(valid.cumsum(1).sum())
+    n_live, n_keys = int(live.sum()), int(valid.sum())
+    esz = q.element_size()
+    q_rows = n_live * nq * hd * esz
+    kv_rows = n_keys * nkv * hd * esz
+    stats = n_live * nq * 4
+    flags = B * S * valid.element_size()
+    bounds = dict(
+        fwd=bound_ms(q_rows + 2 * kv_rows + flags + nbytes(out, lse), 4 * hd * nq * pairs,
+                     dtype_name),
+        dq=bound_ms(2 * q_rows + 2 * kv_rows + 2 * stats + flags + nbytes(got[0]),
+                    6 * hd * nq * pairs, dtype_name),
+        dkv=bound_ms(2 * q_rows + 2 * kv_rows + 2 * stats + flags + nbytes(*got[1:]),
+                     8 * hd * nq * pairs, dtype_name),
+    )
+    log(f"{tag}: K3+lse {ms['fwd']:.4f} ms (bound {bounds['fwd'][0]:.5f}, {bounds['fwd'][1]}), "
+        f"K5a {ms['dq']:.4f} ms (bound {bounds['dq'][0]:.5f}), K5b {ms['dkv']:.4f} ms (bound "
+        f"{bounds['dkv'][0]:.5f}); plain forward {plain['fwd']:.3f} ms, backward "
+        f"{plain['bwd']:.3f} ms; SDPA forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; "
+        f"{pairs} causal pairs per head")
+    shape = f"B={B} S={S} nq={nq} nkv={nkv} hd={hd} {dtype_name}, causal, left-padded"
+    return dict(
+        lse_err=lse_err, out_err=out_err, rel_rms=rel, max_abs=max_abs, bitwise_equal=same,
+        dead_rows_zero=dead_zero, pairs=pairs, shape=shape,
+        fwd=dict(err=out_err, ms=ms["fwd"], plain_ms=plain["fwd"], library_ms=lib_fwd,
+                 bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1]),
+        dq=dict(err=max_abs, ms=ms["dq"], plain_ms=plain["bwd"], library_ms=lib_bwd,
+                bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1]),
+        dkv=dict(err=max_abs, ms=ms["dkv"], plain_ms=plain["bwd"], library_ms=lib_bwd,
+                 bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_S = 2048
+TRAIN_STEPS = 4
+# Gross limits on the first step's loss and grad norm, flash kernels against
+# plain attention, bf16 weights: two correct bf16 evaluations of 16 layers
+# drift apart (phase 3), so this catches gross faults only.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GNORM_RTOL = 5e-2
+TRAINER_S = 256
+
+
+def train_counters() -> dict:
+    from csm_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv}
+
+
+def _timed_step(step, state, batch):
+    import torch
+
+    wrappers = train_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, None, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return state, {k: float(v) for k, v in m.items()}, dt, {k: w.launches for k, w in wrappers.items()}
+
+
+def train_full_width(cfg) -> dict:
+    """4 steps of a random bf16 CSM-1B on a 2048-frame synthetic
+    conversation (``max_dec = S // 16 + 1``, remat ``"auto"``), with the
+    first step also run through plain attention; then a ``torch.profiler``
+    breakdown of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.train import make_optimizer, make_train_step
+    from csm_tpu_torch.train.loop import map_tree
+    from csm_tpu_torch.utils.synthetic import synthetic_conversation_batch
+
+    L = cfg.backbone.num_hidden_layers
+    params = csm.init_params(cfg, 0, torch.bfloat16, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_conversation_batch(cfg, TRAIN_S, seed=0).items()}
+    max_dec = TRAIN_S // 16 + 1
+    opt = make_optimizer(5e-6, total_steps=100)
+
+    plain_state = opt.init(map_tree(torch.clone, params))
+    plain_step = make_train_step(cfg, opt, max_dec, remat=True, remat_policy="auto",
+                                 use_flash=False)
+    plain_state, plain_m, _, plain_launches = _timed_step(plain_step, plain_state, batch)
+    plain_state, _, plain_dt, _ = _timed_step(plain_step, plain_state, batch)  # timed, warm
+    del plain_state
+    torch.cuda.empty_cache()
+    check(not any(plain_launches.values()), f"use_flash=False launched {plain_launches}")
+
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, max_dec, remat=True, remat_policy="auto")
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(TRAIN_STEPS):
+        state, m, dt, launches = _timed_step(step, state, batch)
+        runs.append(dict(ms=dt * 1e3, launches=launches, **m))
+        log(f"train S={TRAIN_S} step {i}: {dt * 1e3:.1f} ms, loss {m['loss']:.4f} (backbone "
+            f"{m['backbone_loss']:.4f}, decoder {m['decoder_loss']:.4f}), grad norm "
+            f"{m['grad_norm']:.4f}, launches {launches}")
+        check(all(math.isfinite(m[k]) for k in m), f"train step {i}: non-finite metrics {m}")
+        want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}  # "auto" -> "dots"
+        check(launches == want, f"train step {i}: launches {launches}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(r["ms"] for r in runs[1:])[len(runs[1:]) // 2]
+    first = runs[0]
+    d_loss = abs(first["loss"] - plain_m["loss"]) / abs(plain_m["loss"])
+    d_gn = abs(first["grad_norm"] - plain_m["grad_norm"]) / abs(plain_m["grad_norm"])
+    log(f"train S={TRAIN_S}: median step {step_ms:.1f} ms (last {TRAIN_STEPS - 1}), peak memory "
+        f"{peak / 2**30:.2f} GiB; plain attention {plain_dt * 1e3:.1f} ms a step (its second), "
+        f"first step loss {plain_m['loss']:.4f}, grad norm {plain_m['grad_norm']:.4f}: relative "
+        "difference "
+        f"loss {d_loss:.2e} (limit {TRAIN_LOSS_RTOL}), grad norm {d_gn:.2e} (limit "
+        f"{TRAIN_GNORM_RTOL})")
+    check(d_loss <= TRAIN_LOSS_RTOL and d_gn <= TRAIN_GNORM_RTOL,
+          f"train: flash vs plain attention first step loss {d_loss:.2e}, grad norm {d_gn:.2e}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, None, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_rec = device_breakdown(prof, PROFILED["train"], f"train step S={TRAIN_S}", wall_ms, 1,
+                                "step")
+    del state, prof
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    return dict(params=params, launches=launches, record=dict(
+        steps=runs, median_step_ms=step_ms, peak_memory_bytes=peak,
+        plain_attention=dict(second_step_ms=plain_dt * 1e3, first_step=plain_m),
+        loss_rel_diff=d_loss, grad_norm_rel_diff=d_gn, profile=prof_rec))
+
+
+class SyntheticItems:
+    """``n`` synthetic conversations of ``S`` frames as dataset items."""
+
+    amortization_ratio = 16
+
+    def __init__(self, cfg, n: int, S: int, seed: int):
+        from csm_tpu_torch.utils.synthetic import synthetic_conversation_batch
+
+        self.data = synthetic_conversation_batch(cfg, S, batch=n, seed=seed)
+
+    def __len__(self):
+        return self.data["input_ids"].shape[1]
+
+    def __getitem__(self, i):
+        return {k: v[0, i] for k, v in self.data.items()}
+
+
+def trainer_full_width(cfg, params) -> dict:
+    """``CSMTrainer`` at full width, S = 256: accum 2 for 2 steps,
+    ``save_checkpoint``, a resume onto other weights, ``evaluate`` before and
+    after."""
+    import torch
+
+    from csm_tpu_torch.data import CSMDataCollator
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.train import CSMTrainer, TrainingArguments
+
+    out_dir = os.path.join(REPO, "csm_tpu_torch", "_build", "train_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = TrainingArguments(
+        output_dir=out_dir, learning_rate=1e-5, per_device_train_batch_size=1,
+        gradient_accumulation_steps=2, max_seq_length=TRAINER_S, save_strategy="no",
+        report_to="none")
+    data = dict(train_dataset=SyntheticItems(cfg, 4, TRAINER_S, 1),
+                eval_dataset=SyntheticItems(cfg, 3, TRAINER_S, 2),
+                data_collator=CSMDataCollator(text_pad_token_id=0))
+    try:
+        trainer = CSMTrainer(cfg, params, args, device="cuda", **data)
+        for w in train_counters().values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        last = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in train_counters().items()}
+        eval_a = trainer.evaluate()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(trainer.state.step)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(out_dir) for f in fs)
+        keep = {k: trainer.state.params[k].detach().clone() for k in ("projection", "audio_head")}
+        steps = trainer.state.step
+        del trainer
+        torch.cuda.empty_cache()
+
+        other = csm.init_params(cfg, 1, torch.bfloat16, "cuda")
+        resumed = CSMTrainer(cfg, other, dataclasses.replace(args, resume_from_checkpoint=True),
+                             device="cuda", **data)
+        t0 = time.perf_counter()
+        at = resumed._maybe_resume()
+        load_s = time.perf_counter() - t0
+        same = all(torch.equal(resumed.state.params[k].detach(), v) for k, v in keep.items())
+        eval_b = resumed.evaluate()
+        del resumed, other
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"CSMTrainer S={TRAINER_S}: {steps} steps of accum 2 in {train_s:.1f} s (loss "
+        f"{last.get('loss', float('nan')):.4f}), launches {launches}; checkpoint "
+        f"{ckpt_bytes / 1e9:.2f} GB saved in {save_s:.1f} s, resumed at step {at} in "
+        f"{load_s:.1f} s, params restored {same}; eval loss {eval_a:.4f} before, {eval_b:.4f} "
+        "after the resume")
+    check(steps == 2 and math.isfinite(last.get("loss", float("nan"))),
+          f"trainer: {steps} steps, {last}")
+    check(all(launches.values()), f"trainer: a flash kernel did not run: {launches}")
+    check(at == 2 and same, f"trainer: resumed at {at}, params restored {same}")
+    check(math.isfinite(eval_a) and abs(eval_a - eval_b) <= 1e-5 * abs(eval_a),
+          f"trainer: eval loss {eval_a} before, {eval_b} after the resume")
+    return dict(steps=steps, train_s=train_s, last=last, launches=launches, eval_loss=eval_a,
+                eval_loss_resumed=eval_b, checkpoint_bytes=ckpt_bytes, save_s=save_s,
+                load_s=load_s)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: sharpened weights
+# ---------------------------------------------------------------------------
+
+OVERFIT_STEPS = 300
+AGREE_FRAMES = 24
+AGREE_PROMPT = 16
+# The exact tier must agree on every token when the plain path's smallest c0
+# top-2 gap exceeds this (the JAX package's trained-agreement gate).
+SHARP_GAP = 0.5
+
+
+def _teacher_forced(model, tier: str, ids0, mask0, forced, rounds=None):
+    """Frames 1.. of a greedy run fed the forced previous frame each step
+    (``forced`` None: fed its own, a free run from the prefill's frame);
+    returns ``(frames [F-1, 32], min c0 top-2 gap, frame 0)``."""
+    import torch
+
+    from csm_tpu_torch import generation
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.models.llama import KVCache
+
+    cfg = model.config
+    qsb = qdec = None
+    if tier != "plain":
+        qsb, qdec = model._qsb, model._qdec
+    cache_len = ((AGREE_PROMPT + AGREE_FRAMES + 127) // 128) * 128
+    cache = KVCache.create(cfg.backbone, 1, cache_len, dtype=torch.bfloat16, device="cuda")
+    kw = dict(greedy=True, qdec=qdec, specdec=tier == "exact")
+    orig = generation.decode_frame_specdec
+    if rounds is not None:
+        def traced(*a, **k):
+            tokens, r = orig(*a, return_rounds=True, **k)
+            rounds.append(r)
+            return tokens
+        generation.decode_frame_specdec = traced
+    try:
+        with torch.no_grad():
+            out = csm.forward(model.params, cfg, ids0, mask0, cache=cache, flash_prefill=True)
+            frame0 = generation.decode_frame(model.params, cfg, out.last_hidden_state, out.logits,
+                                             greedy=True)
+            cache, prev, frames, gap = out.cache, frame0, [], float("inf")
+            for t in range(1, AGREE_FRAMES):
+                ids, mask = generation._next_frame_inputs(cfg, prev)
+                out = csm.forward(model.params, cfg, ids, mask, cache=cache, qsb=qsb)
+                cache = out.cache
+                frame = generation.decode_frame(model.params, cfg, out.last_hidden_state,
+                                                out.logits, **kw)
+                top2 = out.logits.float().topk(2, dim=-1).values
+                gap = min(gap, (top2[:, 0] - top2[:, 1]).min().item())
+                frames.append(frame[0])
+                prev = frame if forced is None else forced[t][None]
+    finally:
+        generation.decode_frame_specdec = orig
+    return torch.stack(frames), gap, frame0[0]
+
+
+def sharpened_agreement(cfg) -> dict:
+    """Overfit a bf16 CSM-1B (seed 0) on a pattern batch for 300 steps (lr
+    3e-4, S 64, B 4), then teacher-forced greedy agreement of ``exact()`` and
+    ``quantize()`` against the plain bf16 path over 24 frames from a phase-3
+    pattern prompt, the plain path's smallest c0 top-2 gap, and the
+    speculative tier's rounds per frame."""
+    import torch
+
+    from csm_tpu_torch import CSMModel
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.utils.overfit import overfit, pattern_batch
+
+    params = csm.init_params(cfg, 0, torch.bfloat16, "cuda")
+    t0 = time.perf_counter()
+    params, loss = overfit(params, cfg, steps=OVERFIT_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    overfit_s = time.perf_counter() - t0
+    model = CSMModel(cfg, params=params, dtype=torch.bfloat16, device="cuda")
+    ev = pattern_batch(cfg, AGREE_PROMPT + 1, batch=1, n_text=8, phase=3)
+    ids0 = torch.as_tensor(ev["input_ids"][0, :, :AGREE_PROMPT], device="cuda")
+    mask0 = torch.as_tensor(ev["attention_mask"][0, :, :AGREE_PROMPT], device="cuda")
+
+    free, _, frame0 = _teacher_forced(model, "plain", ids0, mask0, None)
+    forced = torch.cat([frame0[None], free])
+    ref, gap, _ = _teacher_forced(model, "plain", ids0, mask0, forced)
+    rounds = []
+    model.exact()
+    exact, gap_exact, _ = _teacher_forced(model, "exact", ids0, mask0, forced, rounds)
+    model.quantize()
+    quant, gap_quant, _ = _teacher_forced(model, "quantize", ids0, mask0, forced)
+    rec = dict(overfit_loss=loss, overfit_steps=OVERFIT_STEPS, overfit_s=overfit_s,
+               frames=AGREE_FRAMES - 1, plain_min_c0_top2_gap=gap,
+               plain_teacher_forced_equals_free_run=bool(torch.equal(ref, free)),
+               specdec_rounds=rounds)
+    for name, fr in (("exact", exact), ("quantize", quant)):
+        rec[f"{name}_token_agreement"] = (fr == ref).float().mean().item()
+        rec[f"{name}_c0_agreement"] = (fr[:, 0] == ref[:, 0]).float().mean().item()
+    rec["gated"] = gap > SHARP_GAP
+    log(f"sharpened weights: overfit {OVERFIT_STEPS} steps in {overfit_s:.1f} s to loss "
+        f"{loss:.4f}; plain min c0 top-2 gap {gap:.3f} (exact {gap_exact:.3f}, quantize "
+        f"{gap_quant:.3f}); teacher-forced token agreement with plain over {AGREE_FRAMES - 1} "
+        f"frames: exact {rec['exact_token_agreement']:.4f} (c0 {rec['exact_c0_agreement']:.4f}), "
+        f"quantize {rec['quantize_token_agreement']:.4f} (c0 "
+        f"{rec['quantize_c0_agreement']:.4f}); speculative rounds per frame {rounds}")
+    check(rec["plain_teacher_forced_equals_free_run"],
+          "sharpened: the plain teacher-forced pass differs from its own free run")
+    if rec["gated"]:
+        check(rec["exact_token_agreement"] == 1.0,
+              f"sharpened: exact() agrees on {rec['exact_token_agreement']:.4f} of tokens "
+              f"with a min top-2 gap of {gap:.3f} > {SHARP_GAP}")
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
 
 
 def main() -> int:
@@ -940,11 +1411,38 @@ def main() -> int:
 
     results = {"e2e": {}}
     counters = end_to_end(model, results)
+    del model
     golden_on_card()
+    torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    flash_bwd = {(B, S, dt): check_flash_bwd(B, S, gen, dt)
+                 for B, S in FLASH_BWD_SHAPES for dt in ("bfloat16", "float32")}
+    torch.cuda.empty_cache()
+    log(f"phase 7 (flash backward) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train = train_full_width(cfg)
+    results["trainer"] = trainer_full_width(cfg, train.pop("params"))
+    results["train"] = train["record"]
+    log(f"phase 8 (training at full width) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    results["sharpened"] = sharpened_agreement(cfg)
+    log(f"phase 9 (sharpened weights) in {time.perf_counter() - t0:.1f} s")
+
+    fb = flash_bwd[(1, TRAIN_S, "bfloat16")]
+    tl = train["launches"]
     rows = [
         dict(name="flash_fwd", route="cuda", source="csm_tpu_torch/csrc/flash_fwd.cu",
-             replaces="csm_tpu/ops/flash_attention.py:104", r=flash[8]),
+             replaces="csm_tpu/ops/flash_attention.py:104", r=flash[8],
+             launches=counters["flash_fwd"] + tl["flash_fwd"],
+             launches_by_path=dict(generate=counters["flash_fwd"], train=tl["flash_fwd"]),
+             with_lse=dict(fb["fwd"], shape=fb["shape"])),
+        dict(name="flash_bwd_dq", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
+             replaces="csm_tpu/ops/flash_attention.py:303", r=dict(fb["dq"], shape=fb["shape"]),
+             launches=tl["flash_bwd_dq"]),
+        dict(name="flash_bwd_dkv", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
+             replaces="csm_tpu/ops/flash_attention.py:367", r=dict(fb["dkv"], shape=fb["shape"]),
+             launches=tl["flash_bwd_dkv"]),
         dict(name="bb_decode", route="cuda", source="csm_tpu_torch/csrc/bb_decode.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1]),
         dict(name="bb_decode_q", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",
@@ -955,8 +1453,9 @@ def main() -> int:
     kernels = []
     for row in rows:
         r = row.pop("r")
+        row.setdefault("launches", counters.get(row["name"]))
         kernels.append(dict(
-            **row, launches=counters[row["name"]], max_abs_err=r["err"], ms=r["ms"],
+            **row, max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"],
         ))
@@ -964,6 +1463,7 @@ def main() -> int:
         "flash_fwd_B1": flash[1], "flash_fwd_B8_float32": flash_f32, "bb_decode_B1": bb[1],
         "bb_decode_B8": bb[8], **{f"bb_decode_q_B{B}": r for B, r in bbq.items()},
         **{f"fused_decoder_B{B}": r for B, r in fused.items()},
+        **{f"flash_bwd_B{B}_S{S}_{dt}": r for (B, S, dt), r in flash_bwd.items()},
         **results,
         "card": smi, "seconds": time.perf_counter() - t_start,
     }

@@ -1,5 +1,5 @@
-"""Checkpoint I/O: the port's own safetensors reader/writer and the
-reference-layout converter."""
+"""Checkpoint I/O: the port's own safetensors reader/writer, the
+reference-layout converter, and training-state bundles with rotation."""
 
 from csm_tpu_torch.checkpoint.hf_convert import (  # noqa: F401
     load_params_from_safetensors,
@@ -7,4 +7,9 @@ from csm_tpu_torch.checkpoint.hf_convert import (  # noqa: F401
     params_from_state_dict,
     save_params_to_safetensors,
     state_dict_from_params,
+)
+from csm_tpu_torch.checkpoint.train_state import (  # noqa: F401
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
 )

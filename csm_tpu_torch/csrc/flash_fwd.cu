@@ -1,14 +1,19 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a), bf16 or fp32.
+// GQA flash-attention forward for Hopper (sm_90a), bf16 or fp32, causal or
+// not, with an optional per-row log-sum-exp output for the backward.
 //
 // Replaces csm_tpu/ops/flash_attention.py::_flash_kernel (the Pallas TPU
-// forward, launched by _flash_fwd_call) on the backbone prefill.  Same
-// function: for each query row of each of the G query heads that share a kv
-// head, an online softmax in fp32 over key tiles that stops at the causal
-// diagonal, keys masked by key_valid with the finite NEG_INF (so a row with
-// no valid key, left padding, stays finite: uniform over the visited keys),
-// probabilities cast to the operands' type before the P.V product (bf16
-// rounds them, fp32 keeps them), fp32 accumulation, output in the operands'
-// type.
+// forward, launched by _flash_fwd_call) on the backbone prefill and the
+// training forward.  Same function: for each query row of each of the G
+// query heads that share a kv head, an online softmax in fp32 over key tiles
+// that (causal) stops at the diagonal, keys masked by key_valid with the
+// finite NEG_INF (so a row with no valid key, left padding, stays finite:
+// uniform over the visited keys), probabilities cast to the operands' type
+// before the P.V product (bf16 rounds them, fp32 keeps them), fp32
+// accumulation, output in the operands' type.  With a non-null lse pointer
+// the finalize step also writes lse = m + log(l) in fp32 ([B, nq, S]); for a
+// dead row m is NEG_INF and, fp32 having an ulp of 64 there, lse rounds back
+// to exactly NEG_INF, which is how the backward kernels (flash_bwd.cu) find
+// such rows.
 //
 // Design (simple first version): one block per (64-row query tile, kv head,
 // batch row); thread t owns query row t % 64 of head t / 64 of the group, with
@@ -98,7 +103,8 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
                  const T* __restrict__ v,                // [B, T, nkv, HD]
                  const int32_t* __restrict__ key_valid,  // [B, T]
                  T* __restrict__ o,                      // [B, S, nkv*G, HD]
-                 int S, int T_, int nkv, float scale) {
+                 float* __restrict__ lse,                // [B, nkv*G, S] or null
+                 int S, int T_, int nkv, int causal, float scale) {
   constexpr int NT = G * BQ;
   constexpr int BK = sizeof(T) == 2 ? 32 : 16;  // keys per tile (shared memory < 48 KB)
   constexpr int VN = Vec<T>::N;
@@ -132,7 +138,7 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
 
   // Keys any row of this tile may see: causality stops at the tile's last
   // row, so window slots at or past S are never read.
-  const int kend = min(T_, min(S, i0 + BQ));
+  const int kend = causal ? min(T_, min(S, i0 + BQ)) : T_;
   for (int j0 = 0; j0 < kend; j0 += BK) {
     for (int idx = tid; idx < BK * HD / VN; idx += NT) {
       const int jj = idx / (HD / VN), dd = (idx % (HD / VN)) * VN;
@@ -162,7 +168,7 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
         dot = fmaf(qr[d], kf.x, dot);
         dot = fmaf(qr[d + 1], kf.y, dot);
       }
-      const bool ok = key_ok[jj] && j0 + jj <= s;
+      const bool ok = key_ok[jj] && (!causal || j0 + jj <= s);
       const float sv = ok ? dot * scale : NEG_INF;
       sc[tid][jj] = sv;
       mt = fmaxf(mt, sv);
@@ -197,37 +203,44 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
       for (int e = 0; e < VN; ++e) out[e] = acc[d + e] / l_safe;
       Vec<T>::store(op + d, out);
     }
+    if (lse != nullptr) lse[((size_t)b * nq + hq) * S + s] = m + logf(l_safe);
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *valid;
+  void *o, *lse;
+  int B, S, T, nkv, causal;
+  float scale;
+  cudaStream_t st;
+};
+
 template <typename T, int HD, int G>
-int launch(const void* q, const void* k, const void* v, const void* valid, void* o, int B,
-           int S, int T_, int nkv, float scale, cudaStream_t st) {
-  dim3 grid((S + BQ - 1) / BQ, nkv, B);
-  flash_fwd_kernel<T, HD, G><<<grid, G * BQ, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(valid), static_cast<T*>(o), S, T_, nkv, scale);
+int launch(const Args& a) {
+  dim3 grid((a.S + BQ - 1) / BQ, a.nkv, a.B);
+  flash_fwd_kernel<T, HD, G><<<grid, G * BQ, 0, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const int32_t*>(a.valid), static_cast<T*>(a.o), static_cast<float*>(a.lse),
+      a.S, a.T, a.nkv, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
-int by_group(int g, const void* q, const void* k, const void* v, const void* valid, void* o,
-             int B, int S, int T_, int nkv, float scale, cudaStream_t st) {
+int by_group(int g, const Args& a) {
   switch (g) {
-    case 1: return launch<T, HD, 1>(q, k, v, valid, o, B, S, T_, nkv, scale, st);
-    case 2: return launch<T, HD, 2>(q, k, v, valid, o, B, S, T_, nkv, scale, st);
-    case 4: return launch<T, HD, 4>(q, k, v, valid, o, B, S, T_, nkv, scale, st);
+    case 1: return launch<T, HD, 1>(a);
+    case 2: return launch<T, HD, 2>(a);
+    case 4: return launch<T, HD, 4>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int by_head_dim(int hd, int g, const void* q, const void* k, const void* v, const void* valid,
-                void* o, int B, int S, int T_, int nkv, float scale, cudaStream_t st) {
+int by_head_dim(int hd, int g, const Args& a) {
   switch (hd) {
-    case 16: return by_group<T, 16>(g, q, k, v, valid, o, B, S, T_, nkv, scale, st);
-    case 32: return by_group<T, 32>(g, q, k, v, valid, o, B, S, T_, nkv, scale, st);
-    case 64: return by_group<T, 64>(g, q, k, v, valid, o, B, S, T_, nkv, scale, st);
+    case 16: return by_group<T, 16>(g, a);
+    case 32: return by_group<T, 32>(g, a);
+    case 64: return by_group<T, 64>(g, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -237,17 +250,19 @@ int by_head_dim(int hd, int g, const void* q, const void* k, const void* v, cons
 extern "C" {
 
 // q [B,S,nq,hd], k/v [B,T,nkv,hd] contiguous, all bf16 (fp32 = 0) or all
-// fp32 (fp32 = 1); key_valid [B,T] int32; o [B,S,nq,hd] in the same type.
-// hd must be 16, 32 or 64 and nq/nkv one of 1, 2, 4.
+// fp32 (fp32 = 1); key_valid [B,T] int32; o [B,S,nq,hd] in the same type;
+// lse [B,nq,S] fp32, or null for no log-sum-exp output.  hd must be 16, 32
+// or 64 and nq/nkv one of 1, 2, 4.  causal = 0 lets every query see every
+// valid key.
 int flash_fwd(const void* q, const void* k, const void* v, const void* key_valid, void* o,
-              int B, int S, int T, int nq, int nkv, int hd, int fp32, void* stream) {
+              void* lse, int B, int S, int T, int nq, int nkv, int hd, int fp32, int causal,
+              void* stream) {
   if (nkv <= 0 || nq % nkv != 0 || S <= 0 || T <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf((float)hd);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, key_valid, o, lse, B, S, T, nkv, causal, 1.0f / sqrtf((float)hd),
+               static_cast<cudaStream_t>(stream)};
   const int g = nq / nkv;
-  return fp32 ? by_head_dim<float>(hd, g, q, k, v, key_valid, o, B, S, T, nkv, scale, st)
-              : by_head_dim<bf16>(hd, g, q, k, v, key_valid, o, B, S, T, nkv, scale, st);
+  return fp32 ? by_head_dim<float>(hd, g, a) : by_head_dim<bf16>(hd, g, a);
 }
 
 const char* flash_error_string(int code) {

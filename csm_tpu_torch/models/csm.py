@@ -128,6 +128,9 @@ def backbone_forward(
     cache: Optional[KVCache] = None,
     flash_prefill: bool = False,
     qbb: Optional[dict] = None,
+    use_flash: bool = True,
+    remat: bool = False,
+    remat_policy: str = "nothing",
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Embed-sum + backbone stack -> hidden ``[B, S, D]``.
 
@@ -136,7 +139,9 @@ def backbone_forward(
     numbered, then masked out of attention).  ``flash_prefill``: the cached call is a
     prefill at cache index 0, so eligible shapes take the flash kernel.
     ``qbb``: int8 layer weights (:mod:`csm_tpu_torch.ops.quant`) for W8A16
-    products."""
+    products.  ``use_flash=False`` forces the plain attention path of the
+    uncached pass; ``remat`` / ``remat_policy`` checkpoint its layers
+    (:func:`csm_tpu_torch.models.llama.forward`)."""
     B, S, _ = input_ids.shape
     dev = input_ids.device
     bcfg = config.backbone
@@ -150,13 +155,14 @@ def backbone_forward(
 
     if cache is None:
         positions = torch.arange(S, device=dev).expand(B, S)
-        if flash_eligible(S, bcfg, weight):
+        if use_flash and flash_eligible(S, bcfg, weight):
             bias, flash_valid = None, frame_valid
         else:
             bias, flash_valid = llama.make_causal_bias(frame_valid, S), None
         hidden, _ = llama.forward(
             params["backbone"], bcfg, h, rope_table=rope, positions=positions,
-            attn_bias=bias, flash_key_valid=flash_valid, qlayers=qbb,
+            attn_bias=bias, flash_key_valid=flash_valid, qlayers=qbb, remat=remat,
+            remat_policy=remat_policy,
         )
         return hidden, None
 
@@ -247,6 +253,9 @@ def forward(
     flash_prefill: bool = False,
     qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
+    use_flash: bool = True,
+    remat: bool = False,
+    remat_policy: str = "nothing",
 ) -> CSMOutput:
     """Full forward with optional training losses.
 
@@ -256,7 +265,9 @@ def forward(
     bundle; single-frame cached steps of up to its tier's cap
     (``MAX_VALIDATED_B_EXACT`` for the exact bundle, ``MAX_VALIDATED_B`` for
     the int8 one) then go through that tier's backbone kernel.  ``qbb``: int8
-    layer weights for the plain backbone's W8A16 products."""
+    layer weights for the plain backbone's W8A16 products.  ``use_flash``,
+    ``remat``, ``remat_policy``: see :func:`backbone_forward` (the training
+    step sets them)."""
     from csm_tpu_torch.ops.bb_kernel import MAX_VALIDATED_B, MAX_VALIDATED_B_EXACT
 
     B, S, _ = input_ids.shape
@@ -271,7 +282,8 @@ def forward(
 
     hidden, new_cache = backbone_forward(
         params, config, input_ids, attention_mask, cache=cache,
-        flash_prefill=flash_prefill, qbb=qbb,
+        flash_prefill=flash_prefill, qbb=qbb, use_flash=use_flash, remat=remat,
+        remat_policy=remat_policy,
     )
     head = params["codebook0_head"]
     last_h = hidden[:, -1, :] if last_index is None else hidden[:, last_index, :]

@@ -19,14 +19,29 @@ exact backbone kernel, :mod:`csm_tpu_torch.ops.bb_kernel`, depends on that):
 each matmul output, ``normed.to(dtype) * weight``, RoPE computed in fp32 and
 cast, fp32 scores and softmax with probabilities cast to the value dtype,
 and ``g * sigmoid(g)`` rounded after the sigmoid and after each product.
+
+Training memory (``forward(remat=True)``): each layer runs under
+``torch.utils.checkpoint``, so its activations are recomputed in the
+backward instead of stored.  ``remat_policy="nothing"`` keeps only the
+layer's input; ``"dots"`` also keeps every 2-D matmul output (``aten.mm``,
+the projections and the MLP) and the flash op's output and log-sum-exp, as
+the JAX package's ``dots_with_no_batch_dims_saveable`` plus its named flash
+output, so the backward re-runs neither the projections nor the flash
+forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from csm_tpu_torch.config import LlamaConfig
 from csm_tpu_torch.ops.flash_attention import flash_attention
@@ -234,6 +249,17 @@ def make_causal_bias(
     return torch.where(ok, zero, neg)[:, None, None, :, :]
 
 
+REMAT_POLICIES = ("nothing", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's ``"dots"``: keep 2-D matmul outputs and the
+    flash op's outputs, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.csm_tpu_torch.flash_attn.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def forward(
     params: dict,
     config: LlamaConfig,
@@ -245,24 +271,41 @@ def forward(
     cache: Optional[KVCache] = None,
     flash_key_valid: Optional[torch.Tensor] = None,
     qlayers: Optional[dict] = None,
+    remat: bool = False,
+    remat_policy: str = "nothing",
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the stack.  Without a cache, T == S.  With one, the chunk's K/V
     are written (in place) at ``cache.index`` and attention spans the
     window; the returned cache shares the tensors, with the index advanced
     by ``S``.  ``qlayers``: stacked int8 weights
     (:func:`csm_tpu_torch.ops.quant.prepare_quantized_backbone`) for W8A16
-    products."""
+    products.  ``remat`` (uncached passes under autograd): checkpoint each
+    layer with ``remat_policy`` ``"nothing"`` or ``"dots"`` (module
+    docstring); no effect on a pass that builds no graph."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}; got {remat_policy!r}")
     cos, sin = gather_rope(rope_table, positions)
     layers = params["layers"]
     h = inputs_embeds
+    run = _layer
+    if remat and cache is None and torch.is_grad_enabled():
+        extra = {}
+        if remat_policy == "dots":
+            extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                    _dots_policy)
+        run = functools.partial(checkpoint, _layer, use_reentrant=False, **extra)
+    # One unbind per stacked weight, not a slice per layer: the backward of
+    # unbind stacks the layers' gradients once, where each slice's backward
+    # would write a zero tensor of the whole stack for autograd to sum.
+    per_layer = {name: w.unbind(0) for name, w in layers.items()}
     for l in range(config.num_hidden_layers):
-        lp = {name: w[l] for name, w in layers.items()}
+        lp = {name: ws[l] for name, ws in per_layer.items()}
         kv = None if cache is None else (cache.k[l], cache.v[l])
         idx = 0 if cache is None else cache.index
         ql = None if qlayers is None else {
             part: {name: w[l] for name, w in qlayers[part].items()} for part in ("w", "s")}
-        h = _layer(h, lp, cos, sin, attn_bias, config, cache_kv=kv,
-                   cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql)
+        h = run(h, lp, cos, sin, attn_bias, config, cache_kv=kv,
+                cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(

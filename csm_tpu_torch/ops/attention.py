@@ -1,11 +1,10 @@
 """Attention dispatch (counterpart of ``csm_tpu/ops/attention.py``).
 
 Multi-token forward passes whose queries start at position 0 (the prefill
-and the uncached forward) go to the flash kernel when the stack runs on CUDA
-and the kernel takes its shape and type; everything else, decode steps
-(``q_len == 1``) included, takes the plain path.  No gradient flows through
-the kernel yet (its backward is later work), so a forward that needs one
-takes the plain path too.
+and the uncached forward, training included: the flash op carries its own
+backward kernels) go to the flash kernel when the stack runs on CUDA and the
+kernels take its shape and type; everything else, decode steps
+(``q_len == 1``) included, takes the plain path.
 """
 
 from __future__ import annotations
@@ -18,11 +17,8 @@ from csm_tpu_torch.ops.flash_attention import DTYPES, GROUPS, HEAD_DIMS
 
 def flash_eligible(q_len: int, config: LlamaConfig, weight: torch.Tensor) -> bool:
     """Whether a ``q_len``-token pass of the stack ``config`` whose weights
-    look like ``weight`` (dtype, device, requires_grad) should use the flash
-    kernel."""
+    look like ``weight`` (dtype, device) should use the flash kernels."""
     if weight.device.type != "cuda" or q_len < 2:
-        return False
-    if torch.is_grad_enabled() and weight.requires_grad:
         return False
     nq, nkv = config.num_attention_heads, config.num_key_value_heads
     return (

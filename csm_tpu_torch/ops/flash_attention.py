@@ -1,31 +1,64 @@
-"""Causal GQA flash-attention forward: the CUDA kernel ``csrc/flash_fwd.cu``
-(counterpart of ``csm_tpu/ops/flash_attention.py::_flash_kernel``) and its
-plain PyTorch version.
+"""GQA flash attention, forward and backward: the CUDA kernels
+``csrc/flash_fwd.cu`` (K3, counterpart of
+``csm_tpu/ops/flash_attention.py::_flash_kernel``) and ``csrc/flash_bwd.cu``
+(K5a ``_flash_bwd_dq_kernel``, K5b ``_flash_bwd_dkv_kernel``), their plain
+PyTorch versions, and the differentiable op that joins them.
 
 Layout ``[B, S, heads, head_dim]`` as in the JAX package.  Queries start at
-absolute position 0 (prefill, uncached forward); keys are masked by
-``key_valid [B, T]`` and causality, with the finite ``NEG_INF`` so that a
-query with no valid key (left padding) stays finite.  Such dead rows are
-garbage by contract: the kernel gives them uniform weight over the keys it
-visits, the plain version over all ``T`` keys.
+absolute position 0 (prefill, training); keys are masked by ``key_valid
+[B, T]`` and, when ``causal``, by causality, with the finite ``NEG_INF`` so
+that a query with no valid key (left padding) stays finite.  Such dead rows
+are garbage by contract: the forward kernel gives them uniform weight over the
+keys it visits, the plain version over all ``T`` keys; their log-sum-exp
+rounds to exactly ``NEG_INF`` and the backward gives them exactly zero
+gradient (their cotangent is zero in the training loss).
 
-Only the forward is ported; the backward kernels (training) are later work.
+The backward is the FlashAttention-2 recompute scheme: the forward also
+returns the per-row log-sum-exp ``lse [B, nq, S]`` in fp32, and the backward
+recomputes ``p = exp(s - lse)`` block by block, with ``delta = rowsum(dO *
+O)`` a plain fp32 reduction, as the JAX package computes it in XLA.
+:func:`flash_attention` is differentiable in ``q``, ``k`` and ``v`` through
+the op ``torch.ops.csm_tpu_torch.flash_attn`` (a ``torch.library`` custom op,
+so that selective checkpointing can name it and keep its output: the
+``"dots"`` remat policy of :mod:`csm_tpu_torch.models.llama`).
+
+The dynamic ``q_offset`` of the JAX kernels (sequence parallelism) is not
+ported.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
+
 import torch
 
 from csm_tpu_torch.ops import _build
 
 NEG_INF = -1e9
 KERNEL = "flash_fwd"
-# What the kernel is instantiated for: operand types, head dims, query heads
-# per kv head.
+BWD_KERNEL = "flash_bwd"
+# What the kernels are instantiated for: operand types, head dims, query
+# heads per kv head.
 DTYPES = (torch.bfloat16, torch.float32)
 HEAD_DIMS = (16, 32, 64)
 GROUPS = (1, 2, 4)
+
+
+def _scores(q, k, key_valid, causal: bool):
+    """fp32 scores ``[B, nkv, g, S, T]`` with masked entries set to
+    ``NEG_INF``; ``q`` grouped as ``[B, nkv, g, S, hd]``."""
+    B, S, nq, hd = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    ok = key_valid.bool()[:, None, :].expand(B, S, T)
+    if causal:
+        dev = q.device
+        ok = ok & (torch.arange(T, device=dev)[None, :] <= torch.arange(S, device=dev)[:, None])
+    qg = q.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4)
+    scores = torch.einsum("bngsh,btnh->bngst", qg.float(), k.float())
+    scores = scores * (1.0 / float(hd) ** 0.5)
+    return torch.where(ok[:, None, None], scores, torch.full_like(scores, NEG_INF)), qg
 
 
 def flash_attention_reference(
@@ -33,33 +66,244 @@ def flash_attention_reference(
     k: torch.Tensor,  # [B, T, nkv, hd]
     v: torch.Tensor,  # [B, T, nkv, hd]
     key_valid: torch.Tensor,  # [B, T] bool/int
-) -> torch.Tensor:
+    causal: bool = True,
+    return_lse: bool = False,
+):
     """The plain version: fp32 scores and softmax over the whole window,
-    causal and invalid scores set to ``NEG_INF``, probabilities cast to
-    ``v``'s dtype.  Returns ``[B, S, nq, hd]`` in ``q``'s dtype."""
+    masked scores set to ``NEG_INF``, probabilities cast to ``v``'s dtype.
+    Returns ``[B, S, nq, hd]`` in ``q``'s dtype and, with ``return_lse``,
+    also ``lse = m + log(l)`` ``[B, nq, S]`` in fp32."""
     B, S, nq, hd = q.shape
-    T, nkv = k.shape[1], k.shape[2]
-    g = nq // nkv
-    dev = q.device
-    causal = torch.arange(T, device=dev)[None, :] <= torch.arange(S, device=dev)[:, None]
-    ok = key_valid.bool()[:, None, :] & causal[None]
-    qg = q.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4)  # [B,nkv,g,S,hd]
-    scores = torch.einsum("bngsh,btnh->bngst", qg.float(), k.float())
-    scores = scores * (1.0 / float(hd) ** 0.5)
-    scores = torch.where(ok[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    scores, _ = _scores(q, k, key_valid, causal)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bngst,btnh->bngsh", probs, v)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, nq, hd).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, nq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    m = scores.amax(dim=-1, keepdim=True)
+    lse = (m + torch.log(torch.exp(scores - m).sum(dim=-1, keepdim=True)))[..., 0]
+    return out, lse.reshape(B, nq, S)
 
 
-def _lib():
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_valid: torch.Tensor,
+    out: torch.Tensor,  # [B, S, nq, hd], the forward's output
+    lse: torch.Tensor,  # [B, nq, S] fp32
+    dout: torch.Tensor,  # [B, S, nq, hd]
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain FlashAttention-2 backward, rounding where the kernels do:
+    ``p = exp(s - lse)`` (0 on dead rows, ``lse <= NEG_INF / 2``),
+    ``dP = dO.V^T`` and ``delta = rowsum(dO * O)`` in fp32, ``dS = p (dP -
+    delta) scale`` and ``P~ = p`` cast to the operands' type before their
+    products, all sums in fp32.  Returns ``(dq, dk, dv)`` in the operands'
+    types."""
+    return _bwd_plain(q, k, v, key_valid, dout, lse, _delta(out, dout), causal)
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * O)`` in fp32, ``[B, nq, S]``."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _bwd_plain(q, k, v, key_valid, dout, lse, delta, causal: bool):
+    B, S, nq, hd = q.shape
+    nkv = k.shape[2]
+    g = nq // nkv
+    scale = 1.0 / float(hd) ** 0.5
+    scores, qg = _scores(q, k, key_valid, causal)  # [B,nkv,g,S,T]
+    lse_g = lse.float().reshape(B, nkv, g, S)[..., None]
+    p = torch.where(lse_g <= NEG_INF / 2, torch.zeros_like(scores), torch.exp(scores - lse_g))
+    dog = dout.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4)  # [B,nkv,g,S,hd]
+    dp = torch.einsum("bngsh,btnh->bngst", dog.float(), v.float())
+    ds = (p * (dp - delta.float().reshape(B, nkv, g, S)[..., None]) * scale).to(q.dtype).float()
+    pt = p.to(dout.dtype).float()
+    dq = torch.einsum("bngst,btnh->bngsh", ds, k.float())
+    dk = torch.einsum("bngst,bngsh->btnh", ds, qg.float())
+    dv = torch.einsum("bngst,bngsh->btnh", pt, dog.float())
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, nq, hd).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _fwd_lib():
     lib = _build.load(KERNEL)
     fn = lib.flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _bwd_lib():
+    lib = _build.load(BWD_KERNEL)
+    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = ctypes.c_int
+    lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_kernel_shapes(name: str, q, k, v, key_valid, *same_as_q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    B, S, nq, hd = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    if not (
+        q.dtype == k.dtype == v.dtype and q.dtype in DTYPES and v.shape == k.shape
+        and hd in HEAD_DIMS and nq % nkv == 0 and nq // nkv in GROUPS
+        and tuple(key_valid.shape) == (B, T)
+        and all(t.shape == q.shape and t.dtype == q.dtype for t in same_as_q)
+    ):
+        raise ValueError(
+            f"{name} kernel takes {DTYPES}, head_dim {HEAD_DIMS}, groups "
+            f"{GROUPS}: got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}"
+        )
+
+
+def flash_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_valid: torch.Tensor,
+    causal: bool = True,
+    with_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K3: the forward, ``(out, lse or None)``.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (and raise on a shape or type it
+    does not take: see ``DTYPES``, ``HEAD_DIMS`` and ``GROUPS``).
+    ``flash_fwd.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_reference(q, k, v, key_valid, causal, return_lse=True)
+        return flash_attention_reference(q, k, v, key_valid, causal), None
+    _check_kernel_shapes("flash_attention", q, k, v, key_valid)
+    B, S, nq, hd = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    valid = key_valid.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((B, nq, S), dtype=torch.float32, device=q.device) if with_lse else None
+    lib = _fwd_lib()
+    rc = lib.flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, B, S, T, nq, nkv, hd,
+        int(q.dtype == torch.float32), int(causal), _build.stream_handle(q.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd launch failed: {lib.flash_error_string(rc).decode()}")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _bwd_args(q, k, v, key_valid, dout, lse, delta):
+    _check_kernel_shapes("flash_bwd", q, k, v, key_valid, dout)
+    B, S, nq, hd = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    if lse.shape != (B, nq, S) or delta.shape != (B, nq, S):
+        raise ValueError(f"flash_bwd: lse / delta must be [B, nq, S] = {(B, nq, S)}")
+    tensors = [t.contiguous() for t in (q, k, v)]
+    tensors.append(key_valid.to(device=q.device, dtype=torch.int32).contiguous())
+    tensors.append(dout.contiguous())
+    tensors += [t.to(torch.float32).contiguous() for t in (lse, delta)]
+    return tensors, (B, S, T, nq, nkv, hd, int(q.dtype == torch.float32))
+
+
+def flash_bwd_dq(q, k, v, key_valid, dout, lse, delta, causal: bool = True) -> torch.Tensor:
+    """K5a: ``dq`` (``lse`` and ``delta`` ``[B, nq, S]`` fp32).  CPU tensors
+    take the plain version.  ``flash_bwd_dq.launches`` counts kernel
+    launches."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, key_valid, dout, lse, delta, causal)[0]
+    tensors, dims = _bwd_args(q, k, v, key_valid, dout, lse, delta)
+    dq = torch.empty_like(tensors[0])
+    lib = _bwd_lib()
+    rc = lib.flash_bwd_dq(*(t.data_ptr() for t in tensors), dq.data_ptr(), *dims, int(causal),
+                          _build.stream_handle(q.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: {lib.flash_bwd_error_string(rc).decode()}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, key_valid, dout, lse, delta,
+                  causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5b: ``(dk, dv)``.  CPU tensors take the plain version.
+    ``flash_bwd_dkv.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, key_valid, dout, lse, delta, causal)[1:]
+    tensors, dims = _bwd_args(q, k, v, key_valid, dout, lse, delta)
+    dk = torch.empty_like(tensors[1])
+    dv = torch.empty_like(tensors[2])
+    lib = _bwd_lib()
+    rc = lib.flash_bwd_dkv(*(t.data_ptr() for t in tensors), dk.data_ptr(), dv.data_ptr(), *dims,
+                           int(causal), _build.stream_handle(q.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: {lib.flash_bwd_error_string(rc).decode()}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, key_valid, out, lse, dout, causal: bool = True):
+    """The backward, ``(dq, dk, dv)``: ``delta`` as an fp32 reduction, then
+    the two kernels (their plain versions on CPU tensors)."""
+    delta = _delta(out, dout)
+    dq = flash_bwd_dq(q, k, v, key_valid, dout, lse, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, key_valid, dout, lse, delta, causal)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The differentiable op
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("csm_tpu_torch::flash_attn", mutates_args=())
+def flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of the forward; differentiable in ``q``, ``k``, ``v``."""
+    return flash_fwd(q, k, v, key_valid, causal, with_lse=True)
+
+
+@flash_attn_op.register_fake
+def _(q, k, v, key_valid, causal):
+    B, S, nq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, nq, S), dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, key_valid, causal = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, key_valid, out, lse)
+    ctx.causal = causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, key_valid, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, key_valid, out, lse, dout, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+flash_attn_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(
@@ -67,38 +311,12 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     key_valid: torch.Tensor,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Causal flash attention forward.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (and raise on a shape or type it does not
-    take: see ``DTYPES``, ``HEAD_DIMS`` and ``GROUPS``).
-    ``flash_attention.launches`` counts kernel launches."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, key_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    B, S, nq, hd = q.shape
-    T, nkv = k.shape[1], k.shape[2]
-    if not (
-        q.dtype == k.dtype == v.dtype and q.dtype in DTYPES and v.shape == k.shape
-        and hd in HEAD_DIMS and nq % nkv == 0 and nq // nkv in GROUPS
-        and tuple(key_valid.shape) == (B, T)
-    ):
-        raise ValueError(
-            f"flash_attention kernel takes {DTYPES}, head_dim {HEAD_DIMS}, groups "
-            f"{GROUPS}: got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}"
-        )
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    valid = key_valid.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
-    lib = _lib()
-    rc = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        B, S, T, nq, nkv, hd, int(q.dtype == torch.float32), _build.stream_handle(q.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: {lib.flash_error_string(rc).decode()}")
-    flash_attention.launches += 1
-    return out
-
-
-flash_attention.launches = 0
+    """Flash attention, ``[B, S, nq, hd]`` in ``q``'s dtype.  When a
+    gradient is wanted the forward keeps its log-sum-exp and the backward
+    runs the two backward kernels; otherwise the forward alone runs, with no
+    log-sum-exp.  CPU tensors take the plain versions."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attn_op(q, k, v, key_valid.to(torch.int32), causal)[0]
+    return flash_fwd(q, k, v, key_valid, causal)[0]

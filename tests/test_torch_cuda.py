@@ -14,11 +14,21 @@ import torch
 
 from csm_tpu_torch import CSMConfig, CSMModel
 from csm_tpu_torch.config import LlamaConfig
+from csm_tpu_torch.models import csm
 import torch.nn.functional as F
 
 from csm_tpu_torch.ops import bb_kernel
 from csm_tpu_torch.ops import fused_decoder as fd
-from csm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from csm_tpu_torch.ops import flash_attention as fa
+from csm_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
+    flash_bwd,
+    flash_fwd,
+)
+from csm_tpu_torch.train import make_optimizer, make_train_step
+from csm_tpu_torch.train.loop import flatten
 
 pytestmark = pytest.mark.gpu
 
@@ -62,11 +72,11 @@ def test_flash_kernel_matches_plain_version(cuda, nq, nkv, dtype, hd, tol):
     valid = torch.zeros((B, T), dtype=torch.int32, device=cuda)
     for b in range(B):
         valid[b, 7 * b:S] = 1
-    before = flash_attention.launches
+    before = flash_fwd.launches
     out = flash_attention(q, k, v, valid)
     ref = flash_attention_reference(q, k, v, valid)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert flash_fwd.launches == before + 1
     assert out.dtype == dtype
     for b in range(B):
         err = (out[b, 7 * b:].float() - ref[b, 7 * b:].float()).abs().max().item()
@@ -210,9 +220,9 @@ def test_generate_runs_both_kernels(cuda):
     ids[..., :32] = rng.integers(1, cfg.audio_vocab_size, (2, 12, 32))
     mask = (ids > 0).astype(np.float32)
     kw = dict(max_new_frames=5, greedy=True, stop_on_all_zeros=False)
-    flash_attention.launches = bb_kernel.bb_decode_step.launches = 0
+    flash_fwd.launches = bb_kernel.bb_decode_step.launches = 0
     plain = model.generate(ids, mask, **kw)
-    assert flash_attention.launches == cfg.backbone.num_hidden_layers
+    assert flash_fwd.launches == cfg.backbone.num_hidden_layers
     assert bb_kernel.bb_decode_step.launches == 0
     exact = model.exact().generate(ids, mask, **kw)
     assert bb_kernel.bb_decode_step.launches == 4
@@ -227,10 +237,10 @@ def test_fp32_prefill_runs_the_flash_kernel(cuda):
     model = CSMModel(cfg, seed=2, device=cuda)
     ids = np.zeros((1, 12, cfg.frame_width), np.int64)
     ids[..., :32] = np.random.default_rng(1).integers(1, cfg.audio_vocab_size, (1, 12, 32))
-    flash_attention.launches = 0
+    flash_fwd.launches = 0
     frames = model.generate(ids, (ids > 0).astype(np.float32), max_new_frames=2, greedy=True,
                             stop_on_all_zeros=False)
-    assert flash_attention.launches == cfg.backbone.num_hidden_layers
+    assert flash_fwd.launches == cfg.backbone.num_hidden_layers
     assert frames.shape == (1, 2, 32)
 
 
@@ -252,3 +262,124 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="unsupported B"):
         bb_kernel.bb_decode_step(model._qsb, cfg, h0, rope, rope,
                                  torch.zeros((B, 8), device=cuda), cache, cache)
+
+
+# The backward kernels against the plain FA2 backward on the same forward
+# output and log-sum-exp (the kernel's own): fp32 differs in the order of the
+# fp32 sums only; bf16 also rounds dS and P to bf16 where the plain version
+# does, and a summation-order flip of one such rounding moves a gradient
+# element by one bf16 step.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.bfloat16, 64), (torch.bfloat16, 16), (torch.float32, 64), (torch.float32, 32),
+])
+@pytest.mark.parametrize("nq,nkv", [(4, 4), (4, 2), (8, 2)])
+def test_flash_backward_kernels_match_plain_version(cuda, nq, nkv, dtype, hd, causal):
+    """Relative RMS of dq / dk / dv within ``BWD_TOL``; the kernel's lse on
+    live rows within 1e-5; dead rows (row b's first 7b keys invalid) get
+    exactly zero dq and contribute nothing to dk / dv; two runs are bitwise
+    equal."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + nq)
+    B, S = 3, 100
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    for b in range(B):
+        valid[b, :7 * b] = 0
+    out, lse = flash_fwd(q, k, v, valid, causal, with_lse=True)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, valid, causal, return_lse=True)
+    live = torch.ones((B, S), dtype=torch.bool, device=cuda)
+    if causal:
+        live = valid.cumsum(1) > 0
+    err = (lse - ref_lse).abs().transpose(1, 2)[live].max().item()
+    assert err <= 1e-5 * max(1.0, ref_lse.abs().max().item()), err
+    if causal:
+        assert (lse.transpose(1, 2)[~live] == fa.NEG_INF).all()
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = flash_bwd(q, k, v, valid, out, lse, do, causal)
+    again = flash_bwd(q, k, v, valid, out, lse, do, causal)
+    want = flash_attention_bwd_reference(q, k, v, valid, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (before[0] + 2, before[1] + 2)
+    for name, a, w, a2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        assert torch.equal(a, a2), name
+        assert _rel_rms(a, w) <= BWD_TOL[dtype], (name, _rel_rms(a, w))
+    if causal:
+        assert (got[0][~live] == 0).all()
+        masked = do * live[:, :, None, None].to(dtype)
+        dead_free = flash_bwd(q, k, v, valid, out, lse, masked, causal)
+        for a, w in zip(got[1:], dead_free[1:]):
+            assert torch.equal(a, w)
+
+
+def _train_batch(cfg, accum, B, S, seed):
+    from oracle import random_csm_batch
+
+    d = random_csm_batch(cfg, accum * B, S, seed=seed)
+    return {k: torch.as_tensor(v.reshape(accum, B, S, -1), device="cuda") for k, v in d.items()}
+
+
+def test_frozen_wq_gradient_reaches_wv(cuda):
+    """With ``wq`` frozen and ``wv`` and the embeddings training, the
+    gradient flows through the flash kernels (forward with LSE, both backward
+    kernels) and equals the plain attention path's (fp32: summation order
+    only)."""
+    cfg = _config()
+    base = CSMModel(cfg, seed=4, device=cuda).params
+    batch = _train_batch(cfg, 1, 2, 48, seed=9)
+    grads = {}
+    for use_flash in (True, False):
+        params = {k: (v.detach().clone().requires_grad_(True) if torch.is_tensor(v) else v)
+                  for k, v in base.items()}
+        for stack in ("backbone", "decoder"):
+            layers = {k: v.detach().clone().requires_grad_(k == "wv")
+                      for k, v in base[stack]["layers"].items()}
+            params[stack] = {"layers": layers, "final_norm": base[stack]["final_norm"]}
+        counts = (flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+        out = csm.forward(params, cfg, batch["input_ids"][0], batch["attention_mask"][0],
+                          labels=batch["labels"][0], max_decoder_frames=24, use_flash=use_flash)
+        out.loss.backward()
+        new = (flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+        L = cfg.backbone.num_hidden_layers
+        assert [n - c for n, c in zip(new, counts)] == ([L, L, L] if use_flash else [0, 0, 0])
+        grads[use_flash] = {"wv": params["backbone"]["layers"]["wv"].grad,
+                            "audio_embeddings": params["audio_embeddings"].grad}
+    for name in ("wv", "audio_embeddings"):
+        a, w = grads[True][name], grads[False][name]
+        assert a is not None and a.abs().sum() > 0, name
+        assert _rel_rms(a, w) <= 1e-4, (name, _rel_rms(a, w))
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_train_step_with_the_kernels_matches_plain_attention(cuda, policy):
+    """A tiny fp32 train step (accum 2, B 2) through the flash kernels and
+    through plain attention: the same losses and grad norm (rtol 1e-4) and
+    gradients (relative RMS 1e-4); K3 runs twice per layer and microbatch
+    under ``"nothing"``, once under ``"dots"``, K5a / K5b once."""
+    cfg = _config()
+    batch = _train_batch(cfg, 2, 2, 48, seed=11)
+    res = {}
+    for use_flash in (True, False):
+        opt = make_optimizer(1e-3, 4)
+        state = opt.init(CSMModel(cfg, seed=5, device=cuda).params)
+        step = make_train_step(cfg, opt, 24, remat=True, remat_policy=policy,
+                               use_flash=use_flash)
+        flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+        state, m = step(state, None, batch)
+        torch.cuda.synchronize()
+        res[use_flash] = (m, {k: p.grad.clone() for k, p in flatten(state.params).items()},
+                          (flash_fwd.launches, fa.flash_bwd_dq.launches,
+                           fa.flash_bwd_dkv.launches))
+    L = cfg.backbone.num_hidden_layers
+    fwd = {"nothing": 2, "dots": 1}[policy]
+    assert res[True][2] == (2 * L * fwd, 2 * L, 2 * L)
+    assert res[False][2] == (0, 0, 0)
+    for k in ("loss", "backbone_loss", "decoder_loss", "grad_norm"):
+        a, w = float(res[True][0][k]), float(res[False][0][k])
+        assert np.isfinite(a) and abs(a - w) <= 1e-4 * abs(w), (k, a, w)
+    for k, g in res[True][1].items():
+        assert _rel_rms(g, res[False][1][k]) <= 1e-4, k
