@@ -10,9 +10,13 @@ A second package beside the JAX one (which stays the reference).  It imports
 - :mod:`csm_tpu_torch.model_api`: ``CSMModel`` (``from_pretrained``,
   ``generate``, ``exact()``, ``quantize()``).
 - :mod:`csm_tpu_torch.ops`: RoPE, sampling, W8A16 weights, the speculative
-  codebook loop, and the hand-written CUDA kernels (flash prefill, exact and
-  int8 backbone decode steps, fused codebook loop) beside their plain
-  PyTorch versions.
+  codebook loop, and the hand-written CUDA kernels (flash prefill and
+  backward, exact / int8 / int4 backbone decode steps, fused codebook loop)
+  beside their plain PyTorch versions.
+- :mod:`csm_tpu_torch.codec`: the Mimi codec, offline and streaming.
+- :mod:`csm_tpu_torch.serving`: ``CSMStreamer`` and ``CSMServer``
+  (continuous batching, per-request sampling, prefix caching, streamed
+  audio).
 
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """

@@ -20,7 +20,7 @@ freezes each stream at its own all-zero frame.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +32,11 @@ from csm_tpu_torch.ops.fused_decoder import MAX_CHUNKED_B, build_frame_gumbel, d
 from csm_tpu_torch.ops.rope import compute_rope_table
 from csm_tpu_torch.ops.sampling import sample_topk
 from csm_tpu_torch.ops.specdec import MAX_SPECDEC_B, decode_frame_specdec
+
+# One generator for the whole batch, or one per stream (each stream's draws
+# then depend on its own generator alone: a request's tokens do not depend on
+# the rest of the batch).
+Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 
 
 def _decoder_step(
@@ -65,15 +70,19 @@ def decode_frame(
     temperature=1.0,
     topk=50,
     greedy: bool = False,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     qdec: Optional[dict] = None,
     specdec: bool = False,
+    greedy_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sample all 32 codebooks of one frame; returns ``[B, 32]`` int64.
 
     The frame's Gumbel noise table ``[32, B, Va]`` is drawn once from
-    ``generator`` (row i for codebook i), whichever tier runs.
-    ``temperature`` / ``topk`` may be per-row ``[B]`` tensors.  ``qdec``: a
+    ``generator`` (row i for codebook i; a list of ``B`` generators draws
+    each stream's rows from its own), whichever tier runs.
+    ``temperature`` / ``topk`` may be per-row ``[B]`` tensors, and
+    ``greedy_rows [B]`` makes the marked rows exactly argmax (top-1 with
+    their noise zeroed) inside a sampled batch.  ``qdec``: a
     :func:`~csm_tpu_torch.ops.fused_decoder.prepare_fused_decoder` bundle;
     batches of up to ``MAX_CHUNKED_B`` then run the fused int8 kernel, or,
     with ``specdec``, up to ``MAX_SPECDEC_B`` run the speculative tier
@@ -85,13 +94,16 @@ def decode_frame(
     proj = params["projection"]
     gumbel = build_frame_gumbel(config, generator, B, greedy, last_h.device)
     args = (params, qdec, config, last_h, c0_logits, gumbel, temperature, topk, greedy)
+    if greedy:
+        greedy_rows = None
     if qdec is not None and specdec and B <= MAX_SPECDEC_B:
-        return decode_frame_specdec(*args)
+        return decode_frame_specdec(*args, greedy_rows=greedy_rows)
     if qdec is not None and not specdec and B <= MAX_CHUNKED_B:
-        return decode_frame_fused(*args)
+        return decode_frame_fused(*args, greedy_rows=greedy_rows)
 
     def draw(logits, i):
-        return sample_topk(logits, topk, temperature, greedy, noise=gumbel[i])
+        return sample_topk(logits, topk, temperature, greedy, noise=gumbel[i],
+                           greedy_rows=greedy_rows)
 
     c0 = draw(c0_logits, 0)
     c0_embed = csm.embed_audio(params, config, 0, c0)
@@ -123,20 +135,24 @@ def generate_frame(
     temperature=1.0,
     topk=50,
     greedy: bool = False,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     true_len: Optional[int] = None,
     flash_prefill: bool = False,
     qdec: Optional[dict] = None,
     qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
     specdec: bool = False,
+    greedy_rows: Optional[torch.Tensor] = None,
 ) -> csm.CSMOutput:
     """One frame's 32 codebooks (reference ``generate_frame``).
 
     ``true_len``: the real frame count of a right-padded prompt; the cache
-    index is pinned there so later steps overwrite the bucket padding.
+    index (an int or a per-stream ``[B]`` tensor) is pinned at its start
+    plus ``true_len``, so later steps overwrite the bucket padding.
     ``qbb`` / ``qsb`` select the backbone step's tier, ``qdec`` /
-    ``specdec`` the codebook loop's (:func:`decode_frame`)."""
+    ``specdec`` the codebook loop's; ``temperature`` / ``topk`` may be
+    per-row and ``greedy_rows`` marks deterministic rows
+    (:func:`decode_frame`)."""
     out = csm.forward(
         params, config, input_ids, attention_mask, cache=cache,
         last_index=None if true_len is None else true_len - 1,
@@ -149,7 +165,7 @@ def generate_frame(
     samples = decode_frame(
         params, config, out.last_hidden_state, out.logits,
         temperature=temperature, topk=topk, greedy=greedy, generator=generator,
-        qdec=qdec, specdec=specdec,
+        qdec=qdec, specdec=specdec, greedy_rows=greedy_rows,
     )
     return csm.CSMOutput(
         last_hidden_state=out.last_hidden_state, logits=out.logits,
@@ -184,7 +200,7 @@ def generate_compiled(
     stop_on_all_zeros: bool = True,
     stop_mode: str = "batch",
     cache_len: Optional[int] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     qdec: Optional[dict] = None,
     qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
@@ -253,15 +269,19 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
     return n
 
 
-def _pad_to_bucket(ids: np.ndarray, mask: np.ndarray):
+def _pad_to_bucket(ids: np.ndarray, mask: np.ndarray, cap: Optional[int] = None):
     """Right-pad ``[B, S, 33]`` ids/mask to the next prompt bucket (zero
-    ids, zero mask).  Returns ``(ids, mask, S)``."""
+    ids, zero mask: masked frames never attend), the bucket clamped to
+    ``cap`` if given.  Returns ``(ids, mask, S, Sb)``; generation and the
+    serving paths share it so their padding rules cannot drift apart."""
     B, S, W = ids.shape
     Sb = _bucket(S)
+    if cap is not None:
+        Sb = min(Sb, cap)
     if Sb > S:
         ids = np.concatenate([ids, np.zeros((B, Sb - S, W), ids.dtype)], axis=1)
         mask = np.concatenate([mask, np.zeros((B, Sb - S, W), mask.dtype)], axis=1)
-    return ids, mask, S
+    return ids, mask, S, Sb
 
 
 def generate(
@@ -275,7 +295,7 @@ def generate(
     use_cache: bool = True,  # accepted for API parity; always cached
     stop_on_all_zeros: bool = True,
     *,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     greedy: bool = False,
     stop_mode: str = "batch",
     qdec: Optional[dict] = None,
@@ -284,7 +304,9 @@ def generate(
     specdec: bool = False,
 ) -> np.ndarray:
     """Reference-compatible ``generate``: ``[B, n_frames, 32]`` int64 numpy
-    tokens (possibly ``[B, 0, 32]``), computed on the params' device."""
+    tokens (possibly ``[B, 0, 32]``), computed on the params' device.
+    ``generator``: one for the batch, or a list of ``B`` (per-stream draws,
+    as the server makes them)."""
     del use_cache
     dev = params["projection"].device
     ids = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor) else input_ids)
@@ -292,7 +314,7 @@ def generate(
         attention_mask.cpu() if isinstance(attention_mask, torch.Tensor) else attention_mask,
         np.float32,
     )
-    ids, mask, S = _pad_to_bucket(ids.astype(np.int64), mask)
+    ids, mask, S, _ = _pad_to_bucket(ids.astype(np.int64), mask)
     frames, n_frames = generate_compiled(
         params, config, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), S,
         max_new_frames=max_new_frames, temperature=temperature, topk=topk, greedy=greedy,

@@ -88,25 +88,22 @@ class CSMModel:
         )
 
     def quantize(self, bits: int = 8, head_bits: int = 16) -> "CSMModel":
-        """The int8 fast tier: each frame's codebook loop runs the fused
-        int8 kernel (``head_bits=8`` also quantizes its per-codebook head
-        slices), per-frame backbone steps of up to 32 streams the int8
-        backbone kernel and larger ones W8A16 products.  The prompt's
-        prefill stays in the param dtype.  Quantized numerics: tokens differ
-        from the plain path's.  Returns ``self``; the later of
-        :meth:`quantize` and :meth:`exact` wins."""
+        """The quantized fast tiers: each frame's codebook loop runs the
+        fused int8 kernel (``head_bits=8`` also quantizes its per-codebook
+        head slices), per-frame backbone steps of up to 32 streams the
+        backbone kernel of ``bits`` (8: int8 layer weights; 4: row-packed
+        int4 with per-row equilibration, the c0 head int8) and larger ones
+        W8A16 products.  The prompt's prefill stays in the param dtype.
+        Quantized numerics: tokens differ from the plain path's.  Returns
+        ``self``; the later of :meth:`quantize` and :meth:`exact` wins."""
         from csm_tpu_torch.ops.bb_kernel import prepare_streamed_backbone
         from csm_tpu_torch.ops.fused_decoder import prepare_fused_decoder
         from csm_tpu_torch.ops.quant import prepare_quantized_backbone
 
-        if bits != 8:
-            raise NotImplementedError(
-                f"quantize(bits={bits}): only bits=8 is ported; the int4 backbone "
-                "tier is queued in ROADMAP.md"
-            )
+        qsb = prepare_streamed_backbone(self.params, self.config, bits=bits)
         self._qdec = prepare_fused_decoder(self.params, self.config, head_bits=head_bits)
         self._qbb = prepare_quantized_backbone(self.params, self.config)
-        self._qsb = prepare_streamed_backbone(self.params, self.config, bits=8)
+        self._qsb = qsb
         self._specdec = False
         return self
 

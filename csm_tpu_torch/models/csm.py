@@ -197,8 +197,8 @@ def forward_decode_streamed(
     cache: KVCache,
 ) -> CSMOutput:
     """One-frame decode step through a backbone kernel
-    (:func:`csm_tpu_torch.ops.bb_kernel.bb_decode_step`, exact or int8 by
-    the bundle): embed-sum, then 16 layers + final norm + c0 head in the
+    (:func:`csm_tpu_torch.ops.bb_kernel.bb_decode_step`, exact, int8 or int4
+    by the bundle): embed-sum, then 16 layers + final norm + c0 head in the
     kernel, which returns the new K/V rows; they are scattered into the
     cache here, in place."""
     from csm_tpu_torch.ops.bb_kernel import bb_decode_step
@@ -264,7 +264,7 @@ def forward(
     ``qsb``: a :func:`~csm_tpu_torch.ops.bb_kernel.prepare_streamed_backbone`
     bundle; single-frame cached steps of up to its tier's cap
     (``MAX_VALIDATED_B_EXACT`` for the exact bundle, ``MAX_VALIDATED_B`` for
-    the int8 one) then go through that tier's backbone kernel.  ``qbb``: int8
+    the int8 and int4 ones) then go through that tier's backbone kernel.  ``qbb``: int8
     layer weights for the plain backbone's W8A16 products.  ``use_flash``,
     ``remat``, ``remat_policy``: see :func:`backbone_forward` (the training
     step sets them)."""

@@ -7,13 +7,16 @@ kernel beside its plain PyTorch version:
   rounds, so its tokens are the plain path's;
 - ``bits=8``, the int8 tier (``csrc/bb_decode_q.cu``, ``B <= 32``): W8A16 with
   int8 per-output-channel weights, the RMSNorm weights folded in (RMSNorm's
-  per-row scale multiplies the products' outputs) and an f32 residual.
+  per-row scale multiplies the products' outputs) and an f32 residual;
+- ``bits=4``, the int4 tier (same source, ``B <= 32``): W4A16 with the layer
+  weights row-packed int4, a per-column scale and a per-row equilibration
+  ``u`` applied to each product's activation before its bf16 rounding; the
+  c0 head stays int8.
 
 One step runs the frame's embedding sum through the 16 backbone layers, the
 final norm and the codebook-0 head.  It returns the normed hidden, the c0
 logits and the new K/V rows, and never writes the cache:
 :func:`csm_tpu_torch.models.csm.forward_decode_streamed` scatters the rows.
-The ``bits=4`` tier is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,6 +45,43 @@ MAX_VALIDATED_B = 32
 _KS_MAX = 64
 
 
+def pack_int4_rows(q: torch.Tensor) -> torch.Tensor:
+    """Pack nibble values ``[-8, 7]`` of ``[..., K, N]`` into int8 bytes
+    ``[..., K/2, N]``: byte row ``i`` is ``(q[2i+1] << 4) | (q[2i] & 0xF)``."""
+    lo = q[..., 0::2, :].to(torch.int32) & 0xF
+    hi = (q[..., 1::2, :].to(torch.int32) & 0xF) << 4
+    return (lo | hi).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4_rows(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_rows`: int8 ``[..., K/2, N]`` to int8
+    ``[..., K, N]`` with the nibbles sign-extended."""
+    b = p.view(torch.uint8).to(torch.int32)
+    lo = b & 0xF
+    lo = lo - 16 * (lo >> 3)
+    hi = b >> 4
+    hi = hi - 16 * (hi >> 3)
+    out = torch.stack([lo, hi], dim=-2)  # [..., K/2, 2, N]
+    return out.reshape(*p.shape[:-2], 2 * p.shape[-2], p.shape[-1]).to(torch.int8)
+
+
+def quantize_int4_equilibrated(w: torch.Tensor):
+    """Symmetric int4 quantization of ``[..., K, N]`` with per-row
+    equilibration, ``w ~ diag(u) unpack(q) diag(s)``: each row divided by its
+    largest magnitude ``u``, then a per-column scale onto the grid ``[-7,
+    7]`` (half to even).  ``u`` is exact algebra: the product applies it to
+    its activation.  Divides as the JAX package's function does.  Returns
+    ``(q packed int8 [..., K/2, N], s f32 [..., 1, N], u f32 [..., 1, K])``."""
+    wf = w.float()
+    u = wf.abs().amax(dim=-1, keepdim=True)  # [..., K, 1]
+    u = torch.where(u > 0, u, torch.ones_like(u))
+    wn = wf / u
+    amax = wn.abs().amax(dim=-2, keepdim=True)  # [..., 1, N]
+    s = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wn / s), -7, 7).to(torch.int8)
+    return pack_int4_rows(q), s, u.transpose(-1, -2)
+
+
 def prepare_streamed_backbone(params: dict, config: CSMConfig, bits: int = 16) -> dict:
     """A tier's weight bundle, heads in the standard layout (the TPU
     kernel's rotary-half column permutation is a TPU layout and is left out).
@@ -54,17 +94,20 @@ def prepare_streamed_backbone(params: dict, config: CSMConfig, bits: int = 16) -
     ``bits=8``: the same four families with the RMSNorm weights folded into
     ``wqkv`` and ``w_gu``, int8 per output channel (``"w"``, scales ``[L, 1,
     N]`` in ``"s"``); the c0 head with the final norm folded in, int8 and
-    padded (scale 1 on the padding); ``final_norm`` in f32."""
-    if bits not in (8, 16):
-        raise NotImplementedError(
-            f"bits={bits}: the exact (16) and int8 (8) tiers are ported; the int4 "
-            "tier is queued in ROADMAP.md"
-        )
+    padded (scale 1 on the padding); ``final_norm`` in f32.
+
+    ``bits=4``: the families of ``bits=8`` through
+    :func:`quantize_int4_equilibrated` (``"w"`` packed ``[L, K/2, N]``,
+    ``"s"`` ``[L, 1, N]``, ``"u"`` ``[L, 1, K]``; the fused q/k/v and
+    gate/up share one ``u`` over their concatenated columns); the head as at
+    ``bits=8``."""
+    if bits not in (4, 8, 16):
+        raise ValueError(f"bits must be 4, 8, or 16, got {bits}")
     bl = params["backbone"]["layers"]
     bf = torch.bfloat16
     Va = config.audio_vocab_size
     Va_pad = -(-Va // 128) * 128
-    if bits == 8:
+    if bits in (4, 8):
         attn_nw = bl["attn_norm"].float()[:, :, None]
         mlp_nw = bl["mlp_norm"].float()[:, :, None]
         fam = {
@@ -74,8 +117,14 @@ def prepare_streamed_backbone(params: dict, config: CSMConfig, bits: int = 16) -
             "w_down": bl["w_down"].float(),
         }
         out = {"w": {}, "s": {}}
+        if bits == 4:
+            out["u"] = {}
         for name, w in fam.items():
-            q, sc = quantize_per_channel(w)
+            if bits == 4:
+                q, sc, u = quantize_int4_equilibrated(w)
+                out["u"][name] = u.contiguous()
+            else:
+                q, sc = quantize_per_channel(w)
             out["w"][name], out["s"][name] = q.contiguous(), sc.contiguous()
         fnw = params["backbone"]["final_norm"].float()
         hq, hs = quantize_per_channel(params["codebook0_head"].float() * fnw[:, None])
@@ -230,10 +279,13 @@ def bb_decode_step(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One backbone decode step.  A ``bits=8`` bundle (it carries scales,
-    ``"s"``) goes to :func:`bb_decode_step_q`.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (and raise on what it does not
-    take).  ``bb_decode_step.launches`` counts the exact kernel's launches."""
+    """One backbone decode step.  A ``bits=4`` bundle (it carries ``"u"``)
+    goes to :func:`bb_decode_step_q4`, a ``bits=8`` bundle (scales, ``"s"``)
+    to :func:`bb_decode_step_q`.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (and raise on what it does not take).
+    ``bb_decode_step.launches`` counts the exact kernel's launches."""
+    if "u" in qsb:
+        return bb_decode_step_q4(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if "s" in qsb:
         return bb_decode_step_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if h0.device.type == "cpu":
@@ -300,7 +352,7 @@ bb_decode_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The int8 tier (bits=8)
+# The int8 and int4 tiers (bits=8, bits=4)
 # ---------------------------------------------------------------------------
 
 
@@ -316,6 +368,7 @@ def bbq_layer_reference(
     v_cache: torch.Tensor,
     acc: torch.dtype = torch.float32,
     act: torch.dtype = torch.bfloat16,
+    prescale: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer of :func:`bb_decode_step_q_reference`: the residual leaving
     layer ``l`` and its new K/V rows (bf16)."""
@@ -323,9 +376,18 @@ def bbq_layer_reference(
     nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
     Fi, eps = bcfg.intermediate_size, bcfg.rms_norm_eps
     B, bf = h.shape[0], torch.bfloat16
-    w, s = qsb["w"], qsb["s"]
+    s, u = qsb["s"], qsb.get("u")
+
+    def w(name):
+        return qsb["w"][name][l] if u is None else unpack_int4_rows(qsb["w"][name][l])
+
+    def pre(x, name):
+        """The product's activation: times the int4 tier's ``u`` before its
+        rounding (left out with ``prescale=False``, a faulty version)."""
+        return x if u is None or not prescale else x * u[name][l]
+
     ok = torch.cat([bias_w >= 0, torch.ones((B, 1), dtype=torch.bool, device=h.device)], dim=1)
-    qkv = qmm(h, w["wqkv"][l], s["wqkv"][l], acc, act) * rms_scale(h, eps)
+    qkv = qmm(pre(h, "wqkv"), w("wqkv"), s["wqkv"][l], acc, act) * rms_scale(h, eps)
     q = apply_rope(qkv[:, :nq * hd].reshape(B, nq, hd), cos, sin)
     k = apply_rope(qkv[:, nq * hd:(nq + nkv) * hd].reshape(B, nkv, hd), cos, sin).to(bf)
     v = qkv[:, (nq + nkv) * hd:].reshape(B, nkv, hd).to(bf)
@@ -337,10 +399,11 @@ def bbq_layer_reference(
     e = torch.exp(scores - scores.max(dim=-1, keepdim=True).values)
     probs = (e / e.sum(dim=-1, keepdim=True)).to(bf).to(acc)
     attn = torch.einsum("bngt,btnh->bngh", probs, vals).float().reshape(B, nq * hd)
-    h = h + qmm(attn, w["wo"][l], s["wo"][l], acc, act)
-    gu = qmm(h, w["w_gu"][l], s["w_gu"][l], acc, act) * rms_scale(h, eps)
+    h = h + qmm(pre(attn, "wo"), w("wo"), s["wo"][l], acc, act)
+    gu = qmm(pre(h, "w_gu"), w("w_gu"), s["w_gu"][l], acc, act) * rms_scale(h, eps)
     gt, up = gu[:, :Fi], gu[:, Fi:]
-    h = h + qmm(gt * torch.sigmoid(gt) * up, w["w_down"][l], s["w_down"][l], acc, act)
+    gated = pre(gt * torch.sigmoid(gt) * up, "w_down")
+    h = h + qmm(gated, w("w_down"), s["w_down"][l], acc, act)
     return h, k, v
 
 
@@ -355,21 +418,25 @@ def bb_decode_step_q_reference(
     v_cache: torch.Tensor,
     acc: torch.dtype = torch.float32,
     act: torch.dtype = torch.bfloat16,
+    prescale: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of the int8 step, the JAX emulator's int8 arithmetic
-    op for op in the standard head layout: an f32 residual; each pre-norm
-    product on bf16(h) times RMSNorm's per-row scale; RoPE in f32; attention
-    with bf16 q, K/V and probabilities, f32 scores and softmax; SwiGLU in
-    f32.  ``acc`` is the type products sum in; ``act`` the type activations
-    are rounded to before each product and the score dot (bf16; f32 gives a
-    faulty version that a check of the kernel must tell apart).  Returns
-    ``(normed_h [B, D] f32, c0_logits [B, Va] f32, new_k [L, B, nkv, hd]
-    bf16, new_v)``."""
+    """The plain version of the int8 and int4 steps, the JAX emulator's int8
+    and int4 arithmetic op for op in the standard head layout: an f32
+    residual; each pre-norm product on bf16(h) (int4: bf16(h u)) times
+    RMSNorm's per-row scale; RoPE in f32; attention with bf16 q, K/V and
+    probabilities, f32 scores and softmax; SwiGLU in f32; the o and down
+    products on bf16(attn) and bf16(gated) (int4: times ``u`` first); the
+    int8 head on bf16(h).  ``acc`` is the type products sum in; ``act`` the
+    type activations are rounded to before each product and the score dot
+    (bf16; f32 gives a faulty version that a check of the kernel must tell
+    apart); ``prescale=False`` leaves the int4 ``u`` out (another faulty
+    version).  Returns ``(normed_h [B, D] f32, c0_logits [B, Va] f32, new_k
+    [L, B, nkv, hd] bf16, new_v)``."""
     h = h0.float()
     new_k, new_v = [], []
     for l in range(qsb["w"]["wqkv"].shape[0]):
         h, k, v = bbq_layer_reference(qsb, config, l, h, cos, sin, bias_w, k_cache[l],
-                                      v_cache[l], acc, act)
+                                      v_cache[l], acc, act, prescale)
         new_k.append(k)
         new_v.append(v)
     rs = rms_scale(h, config.backbone.rms_norm_eps)
@@ -380,14 +447,69 @@ def bb_decode_step_q_reference(
 
 def _lib_q():
     lib = _build.load(KERNEL_Q)
-    fn = lib.bb_decode_q_step
-    fn.argtypes = [_F] * 27 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F]
-    fn.restype = ctypes.c_int
-    lib.bbq_part_floats.argtypes = [ctypes.c_int] * 7
+    tail = [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F]
+    lib.bb_decode_q_step.argtypes = [_F] * 27 + tail
+    lib.bb_decode_q_step.restype = ctypes.c_int
+    lib.bb_decode_q4_step.argtypes = [_F] * 31 + tail
+    lib.bb_decode_q4_step.restype = ctypes.c_int
+    lib.bbq_part_floats.argtypes = [ctypes.c_int] * 8
     lib.bbq_part_floats.restype = ctypes.c_longlong
     lib.bbq_error_string.argtypes = [ctypes.c_int]
     lib.bbq_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str):
+    """Launch the int8 (``"u"`` absent) or int4 step of ``csrc/bb_decode_q.cu``
+    on CUDA tensors; raises on what the kernel does not take."""
+    int4 = "u" in qsb
+    bcfg = config.backbone
+    w, s = qsb["w"], qsb["s"]
+    L = w["wqkv"].shape[0]
+    D, Fi = bcfg.hidden_size, bcfg.intermediate_size
+    nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
+    B, W = h0.shape[0], k_cache.shape[2]
+    n_head = w["head"].shape[1]
+    if not (1 <= B <= MAX_VALIDATED_B and nq % nkv == 0 and nq // nkv <= 8 and hd % 2 == 0):
+        raise ValueError(f"{name} kernel: unsupported B={B}, heads {nq}/{nkv}, hd={hd}")
+    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
+        raise ValueError(f"{name} kernel takes a bf16 KV cache")
+    if tuple(k_cache.shape) != (L, B, W, nkv, hd) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name} kernel: cache shape {tuple(k_cache.shape)}")
+    if int4 and tuple(w["wqkv"].shape[1:]) != (D // 2, (nq + 2 * nkv) * hd):
+        raise ValueError(f"{name} kernel: packed wqkv shape {tuple(w['wqkv'].shape)}")
+    dev = h0.device
+    f32, bf = torch.float32, torch.bfloat16
+
+    def f(x):
+        return x.to(device=dev, dtype=f32).contiguous()
+
+    h0, cos, sin, bias_w = f(h0), f(cos), f(sin), f(bias_w)
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    lib = _lib_q()
+    part_floats = lib.bbq_part_floats(B, D, nq, nkv, hd, Fi, n_head, 4 if int4 else 8)
+    if part_floats < 0:
+        raise RuntimeError(f"{name}: {lib.bbq_error_string(-part_floats).decode()}")
+    nh = torch.empty((B, D), dtype=f32, device=dev)
+    logits = torch.empty((B, n_head), dtype=f32, device=dev)
+    new_k = torch.empty((L, B, nkv, hd), dtype=bf, device=dev)
+    new_v = torch.empty_like(new_k)
+    sc = {n: torch.empty(shp, dtype=f32, device=dev) for n, shp in dict(
+        h=(B, D), xb=(B, D), rs=(B,), attn=(B, nq * hd), gated=(B, Fi), part=(part_floats,)).items()}
+    fams = ("wqkv", "wo", "w_gu", "w_down")
+    ptrs = [h0, cos, sin, bias_w, k_cache, v_cache, *(w[k] for k in (*fams, "head")),
+            *(s[k] for k in (*fams, "head"))]
+    if int4:
+        ptrs += [qsb["u"][k] for k in fams]
+    ptrs += [qsb["final_norm"], nh, logits, new_k, new_v,
+             *(sc[k] for k in ("h", "xb", "rs", "attn", "gated", "part"))]
+    fn = lib.bb_decode_q4_step if int4 else lib.bb_decode_q_step
+    rc = fn(*(t.data_ptr() for t in ptrs), part_floats,
+            L, B, D, Fi, nq, nkv, hd, W, n_head, float(bcfg.rms_norm_eps),
+            _build.stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.bbq_error_string(rc).decode()}")
+    return nh, logits[:, :config.audio_vocab_size], new_k, new_v
 
 
 def bb_decode_step_q(
@@ -403,57 +525,44 @@ def bb_decode_step_q(
     """One int8 backbone decode step.  CPU tensors take the plain version;
     CUDA tensors launch ``csrc/bb_decode_q.cu`` (and raise on what it does
     not take).  ``bb_decode_step_q.launches`` counts kernel launches."""
+    if "u" in qsb:
+        raise ValueError("bb_decode_step_q takes an int8 bundle; int4 goes to bb_decode_step_q4")
     if h0.device.type == "cpu":
         return bb_decode_step_q_reference(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if h0.device.type != "cuda":
         raise ValueError(f"bb_decode_step_q: unsupported device {h0.device}")
-    bcfg = config.backbone
-    w, s = qsb["w"], qsb["s"]
-    L = w["wqkv"].shape[0]
-    D, Fi = bcfg.hidden_size, bcfg.intermediate_size
-    nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
-    B, W = h0.shape[0], k_cache.shape[2]
-    n_head = w["head"].shape[1]
-    if not (1 <= B <= MAX_VALIDATED_B and nq % nkv == 0 and nq // nkv <= 8 and hd % 2 == 0):
-        raise ValueError(f"bb_decode_step_q kernel: unsupported B={B}, heads {nq}/{nkv}, hd={hd}")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise ValueError("bb_decode_step_q kernel takes a bf16 KV cache")
-    if tuple(k_cache.shape) != (L, B, W, nkv, hd) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"bb_decode_step_q kernel: cache shape {tuple(k_cache.shape)}")
-    dev = h0.device
-    f32, bf = torch.float32, torch.bfloat16
-
-    def f(x):
-        return x.to(device=dev, dtype=f32).contiguous()
-
-    h0, cos, sin, bias_w = f(h0), f(cos), f(sin), f(bias_w)
-    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-    lib = _lib_q()
-    part_floats = lib.bbq_part_floats(B, D, nq, nkv, hd, Fi, n_head)
-    if part_floats < 0:
-        raise RuntimeError(f"bb_decode_step_q: {lib.bbq_error_string(-part_floats).decode()}")
-    nh = torch.empty((B, D), dtype=f32, device=dev)
-    logits = torch.empty((B, n_head), dtype=f32, device=dev)
-    new_k = torch.empty((L, B, nkv, hd), dtype=bf, device=dev)
-    new_v = torch.empty_like(new_k)
-    sc = {n: torch.empty(shp, dtype=f32, device=dev) for n, shp in dict(
-        h=(B, D), xb=(B, D), rs=(B,), attn=(B, nq * hd), gated=(B, Fi), part=(part_floats,)).items()}
-    rc = lib.bb_decode_q_step(
-        h0.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias_w.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(),
-        w["wqkv"].data_ptr(), w["wo"].data_ptr(), w["w_gu"].data_ptr(), w["w_down"].data_ptr(),
-        w["head"].data_ptr(), s["wqkv"].data_ptr(), s["wo"].data_ptr(), s["w_gu"].data_ptr(),
-        s["w_down"].data_ptr(), s["head"].data_ptr(), qsb["final_norm"].data_ptr(),
-        nh.data_ptr(), logits.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-        sc["h"].data_ptr(), sc["xb"].data_ptr(), sc["rs"].data_ptr(), sc["attn"].data_ptr(),
-        sc["gated"].data_ptr(), sc["part"].data_ptr(), part_floats,
-        L, B, D, Fi, nq, nkv, hd, W, n_head, float(bcfg.rms_norm_eps),
-        _build.stream_handle(dev),
-    )
-    if rc != 0:
-        raise RuntimeError(f"bb_decode_step_q launch failed: {lib.bbq_error_string(rc).decode()}")
+    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q")
     bb_decode_step_q.launches += 1
-    return nh, logits[:, :config.audio_vocab_size], new_k, new_v
+    return out
 
 
 bb_decode_step_q.launches = 0
+
+
+def bb_decode_step_q4(
+    qsb: dict,
+    config: CSMConfig,
+    h0: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    bias_w: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One int4 backbone decode step (a ``bits=4`` bundle).  CPU tensors take
+    the plain version (:func:`bb_decode_step_q_reference`, which reads the
+    bundle's ``"u"``); CUDA tensors launch the int4 step of
+    ``csrc/bb_decode_q.cu`` (and raise on what it does not take).
+    ``bb_decode_step_q4.launches`` counts kernel launches."""
+    if "u" not in qsb:
+        raise ValueError("bb_decode_step_q4 takes an int4 bundle (with \"u\")")
+    if h0.device.type == "cpu":
+        return bb_decode_step_q_reference(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
+    if h0.device.type != "cuda":
+        raise ValueError(f"bb_decode_step_q4: unsupported device {h0.device}")
+    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q4")
+    bb_decode_step_q4.launches += 1
+    return out
+
+
+bb_decode_step_q4.launches = 0

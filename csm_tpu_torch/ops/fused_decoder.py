@@ -124,15 +124,21 @@ def sample_row(
 
 
 def build_frame_gumbel(
-    config: CSMConfig, generator: Optional[torch.Generator], B: int, greedy: bool, device
+    config: CSMConfig, generator, B: int, greedy: bool, device
 ) -> torch.Tensor:
     """One frame's noise table ``[N, B, Va]``: row ``i`` is codebook ``i``'s,
-    drawn once from ``generator`` and shared by every tier (zero when
-    greedy)."""
-    shape = (config.audio_num_codebooks, B, config.audio_vocab_size)
+    drawn once and shared by every tier (zero when greedy).  ``generator`` is
+    one ``torch.Generator`` (or None) for the whole table, or a list of ``B``:
+    stream ``b``'s ``[N, Va]`` noise then comes from generator ``b`` alone, so
+    its draws do not depend on the rest of the batch."""
+    N, Va = config.audio_num_codebooks, config.audio_vocab_size
     if greedy:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-    return gumbel_noise(shape, generator, device)
+        return torch.zeros((N, B, Va), dtype=torch.float32, device=device)
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != B:
+            raise ValueError(f"{len(generator)} generators for a batch of {B}")
+        return torch.stack([gumbel_noise((N, Va), g, device) for g in generator], dim=1)
+    return gumbel_noise((N, B, Va), generator, device)
 
 
 def row_params(B: int, Va: int, temperature, topk, gumbel: torch.Tensor,

@@ -150,6 +150,91 @@ def test_bb_q_kernel_matches_plain_version(cuda, B):
         assert (a != r).float().mean().item() <= 0.02
 
 
+def _one_layer(qsb: dict, l: int) -> dict:
+    """A quantized bundle holding only layer ``l`` of its stacked weights."""
+    out = dict(qsb)
+    for part in ("w", "s", "u"):
+        if part in qsb:
+            out[part] = {k: (v if k == "head" else v[l:l + 1]) for k, v in qsb[part].items()}
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_bb_q4_kernel_matches_plain_version_one_layer_at_a_time(cuda, B):
+    """The int4 step: the full step within 5e-2 relative RMS (a gross gate:
+    flipped bf16 roundings carry on through the layers); each layer alone,
+    fed the plain version's residual, with the f32 normed hidden within 2e-3
+    relative RMS and at most 2 % (K/V) and 10 % (logits) of the bf16 values
+    one rounding apart.  The plain version without the ``u`` prescale breaks
+    the one-layer limits."""
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
+    qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=4)
+    bc = cfg.backbone
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    W = 40
+    h0 = (0.1 * torch.randn((B, bc.hidden_size), generator=gen, device=cuda)).bfloat16().float()
+    cos = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
+    sin = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
+    bias = torch.where(torch.rand((B, W), generator=gen, device=cuda) < 0.6, 0.0, -1e9).float()
+    shape = (bc.num_hidden_layers, B, W, bc.num_key_value_heads, bc.head_dim)
+    kc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    before = bb_kernel.bb_decode_step_q4.launches
+    out = bb_kernel.bb_decode_step(qsb, cfg, h0, cos, sin, bias, kc, vc)
+    ref = bb_kernel.bb_decode_step_q_reference(qsb, cfg, h0, cos, sin, bias, kc, vc)
+    torch.cuda.synchronize()
+    assert bb_kernel.bb_decode_step_q4.launches == before + 1
+    for a, r in zip(out, ref):
+        assert a.shape == r.shape and torch.isfinite(a.float()).all()
+    assert _rel_rms(out[0], ref[0]) <= 5e-2 and _rel_rms(out[1], ref[1]) <= 5e-2
+
+    def misfit(got, want):
+        return (_rel_rms(got[0], want[0]) > 2e-3 or (got[1] != want[1]).float().mean() > 0.1
+                or any((a != r).float().mean() > 0.02 for a, r in zip(got[2:], want[2:])))
+
+    h, control_broke = h0, False
+    for l in range(bc.num_hidden_layers):
+        a1 = (_one_layer(qsb, l), cfg, h, cos, sin, bias, kc[l:l + 1], vc[l:l + 1])
+        r1 = bb_kernel.bb_decode_step_q_reference(*a1)
+        assert not misfit(bb_kernel.bb_decode_step_q4(*a1), r1), l
+        control_broke |= misfit(bb_kernel.bb_decode_step_q_reference(*a1, prescale=False), r1)
+        h, _, _ = bb_kernel.bbq_layer_reference(qsb, cfg, l, h, cos, sin, bias, kc[l], vc[l])
+    assert control_broke
+
+
+def test_int4_server_runs_the_kernels_and_streams_audio(cuda):
+    """A CSMServer on quantize(bits=4)'s bundles with a tiny codec: K1q-4
+    for every frame step, K2 for every frame, each request's streamed PCM
+    equal to the offline decode of its frames."""
+    from csm_tpu_torch.codec import MimiCodec, MimiCodecConfig, random_mimi_params
+    from csm_tpu_torch.serving import CSMServer
+
+    torch.backends.cudnn.allow_tf32 = False  # fp32 convolutions, as offline decode runs them
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=2, device=cuda).quantize(bits=4)
+    ccfg = MimiCodecConfig.tiny(num_quantizers=cfg.audio_num_codebooks)
+    codec = MimiCodec(ccfg, random_mimi_params(ccfg, seed=1), device=cuda)
+    server = CSMServer(model.params, cfg, n_slots=2, window=64, temperature=0.8, topk=5,
+                       stop_on_all_zeros=False, max_new_frames=3, qdec=model._qdec,
+                       qbb=model._qbb, qsb=model._qsb, codec=codec)
+    rng = np.random.default_rng(3)
+    bb_kernel.bb_decode_step_q4.launches = fd.fused_decode_codebooks.launches = 0
+    rids = []
+    for S in (5, 9, 7):
+        ids = np.zeros((1, S, cfg.frame_width), np.int64)
+        ids[..., :32] = rng.integers(1, cfg.audio_vocab_size, (1, S, 32))
+        rids.append(server.submit(ids, (ids > 0).astype(np.float32), greedy=S == 9))
+    server.run_until_idle()
+    assert bb_kernel.bb_decode_step_q4.launches > 0 and fd.fused_decode_codebooks.launches > 0
+    hop = 2 * ccfg.total_stride
+    for rid in rids:
+        frames = server.results[rid]
+        assert frames.shape == (3, 32) and server.audio[rid].shape == (3 * hop,)
+        np.testing.assert_allclose(server.audio[rid], codec.decode(frames.T), rtol=1e-3,
+                                   atol=1e-4)
+
+
 @pytest.mark.parametrize("head_bits", [16, 8])
 @pytest.mark.parametrize("B", [1, 3, 32])
 def test_fused_kernel_matches_plain_version_teacher_forced(cuda, B, head_bits):

@@ -26,6 +26,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 12, names
+assert {"csm_tpu_torch.serving", "csm_tpu_torch.codec.mimi", "csm_tpu_torch.codec.streaming",
+        "csm_tpu_torch.codec.convert"} <= set(names), names
 """
 
 
@@ -95,11 +97,15 @@ def test_config_reads_hf_rope_type_key():
 
 
 def test_unported_tiers_raise():
+    """Every tier is ported; a ``bits`` outside {4, 8, 16} raises as the JAX
+    package's ``prepare_streamed_backbone`` does."""
     from csm_tpu_torch import CSMModel
     from csm_tpu_torch.ops.bb_kernel import prepare_streamed_backbone
 
     model = CSMModel(CSMConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.quantize(bits=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_streamed_backbone(model.params, model.config, bits=4)
+    for bits in (2, 6, 32):
+        with pytest.raises(ValueError, match="bits must be 4, 8, or 16"):
+            model.quantize(bits=bits)
+        with pytest.raises(ValueError, match="bits must be 4, 8, or 16"):
+            prepare_streamed_backbone(model.params, model.config, bits=bits)
+    assert model._qsb is None

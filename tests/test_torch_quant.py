@@ -74,8 +74,8 @@ def test_prepare_streamed_backbone_bits8_is_bit_equal_to_jax():
         for name in ("wo", "w_gu", "w_down", "head"):
             np.testing.assert_array_equal(got[key][name].numpy(), np.asarray(want[key][name]), name)
     np.testing.assert_array_equal(got["final_norm"].numpy(), np.asarray(want["final_norm"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bb_kernel.prepare_streamed_backbone(tp, cfg, bits=4)
+    with pytest.raises(ValueError, match="bits must be 4, 8, or 16"):
+        bb_kernel.prepare_streamed_backbone(tp, cfg, bits=5)
 
 
 def _step_inputs(cfg, B: int, W: int, seed: int):
