@@ -67,9 +67,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    against the plain bf16 step's (int4 gated at 0.3 relative RMS, the JAX
    package's 0.15 max-relative budget reported), the speculative rounds
    per frame, and batch invariance: a greedy request in a
-   full 8-slot int4 server against the same request alone.
+   full 8-slot int4 server against the same request alone;
+13. sequence parallelism: K3 with LSE, K5a and K5b on query shards at
+   ``q_offset = shard * S_local`` (B = 1, S = 2048, 2 and 4 shards, bf16 and
+   fp32, left-padded): forward, lse and dq bitwise equal to the unsharded
+   launches' rows, dk / dv summed over the shards against the unsharded
+   ones, the key blocks after a shard's last row exactly zero (written over
+   NaN-poisoned memory), the ``q_offset = 0`` control breaking the gates,
+   times per shard beside bounds, plain versions and SDPA; then sharded
+   train steps on ranks spawned by ``csm_tpu_torch.parallel.launch``, all on
+   ``cuda:0`` over gloo: data=1 x seq=2 at full depth on phase 8's batch
+   (3 steps) and data=2 x seq=2 with 4 backbone layers at S = 1024, B = 2
+   (2 steps), each against a one-process step on the same batch: losses
+   and grad norm, the first step's gradient norm of every parameter (a
+   layer at a time), with a lost reduce-scatter of dK / dV as the control
+   that must break that gate; parameters bitwise equal across ranks after
+   every step, launches, ms and peak memory per rank.
 
-Phases 7-10 and 12 print their seconds.
+Phases 7-10, 12 and 13 print their seconds.
 
 The full record of the run goes to ``chiprun_out/chip_smoke.json``.
 
@@ -1683,6 +1698,435 @@ def sharpened_agreement(cfg) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: sequence parallelism (K3 / K5a / K5b with q_offset, sharded steps)
+# ---------------------------------------------------------------------------
+
+SP_SHARDS = (2, 4)
+# dk / dv summed over the shards against the unsharded launch's: every
+# shard's partial is rounded to the operands' type before the sum, so bf16
+# carries one rounding per shard besides the unsharded one (~1e-3 relative
+# RMS each; 2.2e-3 at 2 shards in a CPU rehearsal of the plain versions);
+# a wrong offset or mask gives 0.1-1.  fp32: summation order only.
+SP_DKV_SUM_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
+# (data, seq, backbone layers, S, B, steps) of the sharded train steps: the
+# first at full depth on phase 8's batch, the second cut to 4 backbone layers
+# (four replicas of weights and AdamW state share the card).
+SP_RUNS = ((1, 2, 16, 2048, 1, 3), (2, 2, 4, 1024, 2, 2))
+SP_LAUNCH_TIMEOUT = 600.0
+# The sharded step's first step against the one-process step on the same
+# batch.  Phase 8's limits (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL) are for
+# kernels against plain attention; here the shard rows are bitwise and only
+# summation orders differ, so the limits are tighter: on an H100 the sound
+# runs read at most 5.5e-7 on the losses and 1.8e-5 on the grad norm.  Those
+# cannot see a fault confined to dK / dV (the forward is untouched and one
+# leaf barely moves a norm over 1.6 G values), so the gradients (summed over
+# the ranks, scaled and clipped, as the update used them) are also held by
+# the largest relative difference of a per-parameter norm, one per layer for
+# the stacked weights: sound runs read at most 8.6e-4 (bf16 gradients of
+# the norm weights), the control, a lost reduce-scatter of the K / V
+# gather's backward, at least 0.17, and must break the limit.
+SP_LOSS_RTOL = 1e-5
+SP_GNORM_RTOL = 2e-4
+SP_GRAD_NORM_RTOL = 3e-3
+
+
+def _poison_allocator(like) -> None:
+    """Leave NaN-filled blocks of ``like``'s size in the caching allocator,
+    so that an output the kernel fails to write shows up."""
+    import torch
+
+    for _ in range(4):
+        torch.full_like(like, float("nan"))
+
+
+def check_q_offset(gen, dtype_name: str) -> dict:
+    """K3 with LSE, K5a and K5b on query shards at ``q_offset = shard *
+    S_local`` (B = 1, S = 2048, 32/8 heads, hd 64, 16 left-padded keys): the
+    forward and lse and dq bitwise equal to the unsharded launches' rows, the
+    forward within ``FLASH_TOL`` of its plain version at the same offset,
+    dk / dv summed over the shards within ``SP_DKV_SUM_TOL`` of the
+    unsharded ones, the key blocks after a shard's last row exactly zero; the
+    ``q_offset = 0`` control must break the gates.  Times per shard call
+    beside bounds (phase 7's formula over the shard's rows), plain versions
+    and SDPA on the shard with an explicit mask."""
+    import torch
+
+    from csm_tpu_torch.ops import flash_attention as fa
+
+    B, S, nq, nkv, hd = 1, TRAIN_S, 32, 8, 64
+    g = nq // nkv
+    dev, dtype = "cuda", getattr(torch, dtype_name)
+    tag = f"q_offset {dtype_name}"
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    valid = torch.ones((B, S), dtype=torch.int32, device=dev)
+    valid[:, :16] = 0
+    live = valid.cumsum(1) > 0
+    out, lse = fa.flash_fwd(q, k, v, valid, True, with_lse=True)
+    dq, dk, dv = fa.flash_bwd(q, k, v, valid, out, lse, do)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kh = k.transpose(1, 2).repeat_interleave(g, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    esz = q.element_size()
+    rec = {}
+    for n in SP_SHARDS:
+        Sl = S // n
+        dk_sum = torch.zeros_like(dk, dtype=torch.float32)
+        dv_sum = torch.zeros_like(dv, dtype=torch.float32)
+        shards = []
+        for s in range(n):
+            off, sl = s * Sl, slice(s * Sl, (s + 1) * Sl)
+            qs, dos, lv = q[:, sl], do[:, sl], live[:, sl]
+            o, l = fa.flash_fwd(qs, k, v, valid, True, with_lse=True, q_offset=off)
+            ref_o = fa.flash_attention_reference(qs, k, v, valid, True, q_offset=off)
+            _poison_allocator(dk)
+            gq, gk, gv = fa.flash_bwd(qs, k, v, valid, o, l, dos, True, off)
+            torch.cuda.synchronize()
+            fwd_bitwise = bool(torch.equal(o[lv], out[:, sl][lv])) and bool(torch.equal(l, lse[..., sl]))
+            dq_bitwise = bool(torch.equal(gq, dq[:, sl]))
+            unseen = -(-(s + 1) * Sl // 64) * 64  # key blocks no row of the shard can see
+            future_zero = bool((gk[:, unseen:] == 0).all()) and bool((gv[:, unseen:] == 0).all())
+            err = (o.float() - ref_o.float()).abs()[lv].max().item()
+            dk_sum += gk.float()
+            dv_sum += gv.float()
+            check(fwd_bitwise and dq_bitwise, f"{tag} {n} shards, shard {s}: forward / lse bitwise "
+                  f"{fwd_bitwise}, dq bitwise {dq_bitwise}")
+            check(future_zero, f"{tag} {n} shards, shard {s}: future key blocks not exactly zero")
+            check(err <= FLASH_TOL[dtype_name], f"{tag} {n} shards, shard {s}: forward vs plain "
+                  f"{err:.3e}")
+            r = dict(shard=s, q_offset=off, fwd_bitwise=fwd_bitwise, dq_bitwise=dq_bitwise,
+                     future_blocks_zero=future_zero, err=err)
+            if s > 0:
+                # Control: the shard at offset 0 is another function.
+                c, _ = fa.flash_fwd(qs, k, v, valid, True, with_lse=True)
+                c_err = (c.float() - ref_o.float()).abs()[lv].max().item()
+                broke = not torch.equal(c[lv], out[:, sl][lv]) and c_err > FLASH_TOL[dtype_name]
+                check(broke, f"{tag} {n} shards, shard {s}: the q_offset=0 control passed the gates")
+                r["control_err"] = c_err
+            if dtype_name == "bfloat16":
+                delta = fa._delta(o, dos)
+                ms = dict(
+                    fwd=cuda_ms(lambda: fa.flash_fwd(qs, k, v, valid, True, True, off), iters=5),
+                    dq=cuda_ms(lambda: fa.flash_bwd_dq(qs, k, v, valid, dos, l, delta, True, off),
+                               iters=5),
+                    dkv=cuda_ms(lambda: fa.flash_bwd_dkv(qs, k, v, valid, dos, l, delta, True,
+                                                         off), iters=5))
+                plain = dict(
+                    fwd=cuda_ms(lambda: fa.flash_attention_reference(qs, k, v, valid, True, True,
+                                                                     off), iters=2, warmup=1),
+                    bwd=cuda_ms(lambda: fa.flash_attention_bwd_reference(
+                        qs, k, v, valid, o, l, dos, True, off), iters=2, warmup=1))
+                pos = off + torch.arange(Sl, device=dev)
+                ok = valid.bool()[:, None, None, :] & (torch.arange(S, device=dev) <= pos[:, None])
+                bias = torch.where(ok, 0.0, fa.NEG_INF).to(dtype)
+                qh = qs.transpose(1, 2).detach().requires_grad_(True)
+                kq, vq = kh.detach().requires_grad_(True), vh.detach().requires_grad_(True)
+                with torch.no_grad():
+                    lib_fwd = cuda_ms(lambda: sdpa(qh, kq, vq, attn_mask=bias), iters=5)
+                so = sdpa(qh, kq, vq, attn_mask=bias)
+                lib_bwd = cuda_ms(lambda: torch.autograd.grad(so, (qh, kq, vq), dos.transpose(1, 2),
+                                                             retain_graph=True), iters=5)
+                del so, qh, kq, vq, bias
+                # What this shard's data needs: each live (row, valid key <=
+                # row) pair per head; q, dO and out of its live rows, k and v
+                # of the valid keys it can see, lse and delta, the flags.
+                cum = valid.cumsum(1)
+                pairs = int(cum[:, sl].sum())
+                n_live, n_keys = int(lv.sum()), int(valid[:, :(s + 1) * Sl].sum())
+                q_rows, kv_rows, stats = n_live * nq * hd * esz, n_keys * nkv * hd * esz, n_live * nq * 4
+                flags = B * S * valid.element_size()
+                bounds = dict(
+                    fwd=bound_ms(q_rows + 2 * kv_rows + flags + nbytes(o, l), 4 * hd * nq * pairs),
+                    dq=bound_ms(2 * q_rows + 2 * kv_rows + 2 * stats + flags + nbytes(gq),
+                                6 * hd * nq * pairs),
+                    dkv=bound_ms(2 * q_rows + 2 * kv_rows + 2 * stats + flags + nbytes(gk, gv),
+                                 8 * hd * nq * pairs))
+                r.update(ms=ms, plain_ms=plain, library_ms=dict(fwd=lib_fwd, bwd=lib_bwd),
+                         bound_ms={kk: b[0] for kk, b in bounds.items()},
+                         bound_by={kk: b[1] for kk, b in bounds.items()}, pairs=pairs)
+                log(f"{tag} {n} shards, shard {s} (q_offset {off}): K3+lse {ms['fwd']:.4f} ms (bound "
+                    f"{bounds['fwd'][0]:.5f}), K5a {ms['dq']:.4f} (bound {bounds['dq'][0]:.5f}), "
+                    f"K5b {ms['dkv']:.4f} (bound {bounds['dkv'][0]:.5f}); plain {plain['fwd']:.3f} / "
+                    f"{plain['bwd']:.3f} ms; SDPA {lib_fwd:.4f} / {lib_bwd:.4f} ms; {pairs} pairs")
+            shards.append(r)
+        rel = dict(dk=rel_rms(dk_sum, dk.float()), dv=rel_rms(dv_sum, dv.float()))
+        check(max(rel.values()) <= SP_DKV_SUM_TOL[dtype_name],
+              f"{tag} {n} shards: summed dk / dv relative RMS {rel}")
+        log(f"{tag} {n} shards: forward, lse and dq bitwise "
+            f"{all(x['fwd_bitwise'] and x['dq_bitwise'] for x in shards)}, future key blocks zero "
+            f"{all(x['future_blocks_zero'] for x in shards)}, summed dk / dv relative RMS "
+            f"{rel['dk']:.2e} / {rel['dv']:.2e}, controls "
+            f"{[round(x.get('control_err', 0.0), 4) for x in shards]}")
+        rec[n] = dict(shards=shards, dkv_rel_rms=rel)
+    return rec
+
+
+def _params_digest(params) -> str:
+    """SHA-256 of every parameter's bytes, in name order."""
+    import hashlib
+
+    import torch
+
+    from csm_tpu_torch.train.loop import flatten
+
+    h = hashlib.sha256()
+    for name, t in flatten(params).items():
+        h.update(name.encode())
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grad_norms(params) -> dict:
+    """The norm of each parameter's gradient, one per layer for the stacked
+    layer weights: ``{name: [norm, ...]}``."""
+    from csm_tpu_torch.train.loop import flatten
+
+    out = {}
+    for name, p in flatten(params).items():
+        g = p.grad.float()
+        g = g.reshape(g.shape[0], -1) if ".layers." in name else g.reshape(1, -1)
+        out[name] = g.norm(dim=1).tolist()
+    return out
+
+
+def _grad_norm_diff(got: dict, ref: dict) -> tuple:
+    """``(largest relative difference, parameter name)`` of two
+    :func:`_grad_norms` records."""
+    worst = (0.0, None)
+    for name, r in ref.items():
+        for a, b in zip(got[name], r):
+            d = abs(a - b) / max(abs(b), 1e-30)
+            if d > worst[0]:
+                worst = (d, name)
+    return worst
+
+
+def _unsummed_grads_control(cfg, state, batch, max_dec: int, opt, mesh) -> dict:
+    """The gradient norms (:func:`_grad_norms`) of one forward and backward
+    with the K / V gather's reduce-scatter replaced by this rank's own block
+    of the gradient (a lost reduce-scatter), then all-reduced, scaled and
+    clipped as the train step does."""
+    import torch
+
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.parallel import collectives
+    from csm_tpu_torch.train.loop import flatten
+
+    def own_block(x, group, dim=1):
+        n = collectives.group_size(group)
+        return x.chunk(n, dim=dim)[torch.distributed.get_rank(group)].contiguous()
+
+    leaves = list(flatten(state.params).values())
+    for p in leaves:
+        p.grad = None
+    real = collectives.reduce_scatter_frames
+    collectives.reduce_scatter_frames = own_block
+    try:
+        rows = batch["input_ids"].shape[1] // mesh.size("data")
+        out = csm.forward(state.params, cfg, batch["input_ids"][0], batch["attention_mask"][0],
+                          labels=batch["labels"][0], max_decoder_frames=max_dec, remat=True,
+                          remat_policy="dots" if rows == 1 else "nothing", sp_mesh=mesh)
+        out.loss.backward()
+    finally:
+        collectives.reduce_scatter_frames = real
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+    collectives.all_reduce_flat_(grads, mesh.group("batch"))
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    opt.clip_(grads)
+    norms = _grad_norms(state.params)
+    for p in leaves:
+        p.grad = None
+    return norms
+
+
+def sp_config(layers: int):
+    from csm_tpu_torch import CSMConfig
+
+    cfg = CSMConfig()
+    return CSMConfig(backbone=dataclasses.replace(cfg.backbone, num_hidden_layers=layers))
+
+
+def sp_max_dec(S: int, B: int) -> int:
+    """Decoder frames of a global batch, as ``CSMTrainer`` sizes them
+    (phase 8's ``S // 16 + 1`` at B = 1)."""
+    return (B * S) // 16 + B
+
+
+def _fwd_bwd_peak(cfg, params, batch, max_dec: int, mesh=None) -> int:
+    """Bytes allocated above the resident state (weights, and the optimizer
+    state if any) at the peak of one forward and backward with remat
+    "auto": the activations kept and recomputed, and the gradients."""
+    import torch
+
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.train.loop import flatten
+
+    leaves = list(flatten(params).values())
+    for p in leaves:
+        p.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows = batch["input_ids"].shape[1] // (mesh.size("data") if mesh is not None else 1)
+    out = csm.forward(params, cfg, batch["input_ids"][0], batch["attention_mask"][0],
+                      labels=batch["labels"][0], max_decoder_frames=max_dec, remat=True,
+                      remat_policy="dots" if rows == 1 else "nothing", sp_mesh=mesh)
+    out.loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    for p in leaves:
+        p.grad = None
+    return peak
+
+
+def _sp_step_rank(data: int, seq: int, layers: int, S: int, B: int, steps: int) -> dict:
+    """One rank of a ``data`` x ``seq`` mesh on the shared card: ``steps``
+    train steps of a random bf16 CSM (seed 0) with ``layers`` backbone
+    layers on ``synthetic_conversation_batch(S, batch=B, seed=0)``, remat
+    "auto", AdamW as phase 8; first the gradient norms of the lost
+    reduce-scatter control (:func:`_unsummed_grads_control`), then per step
+    its metrics, launches, ms, peak memory and a digest of the parameters,
+    the first step's gradient norms; then the time of the gradients'
+    all-reduce alone (the ranks aligned by a barrier) and the forward +
+    backward peak (:func:`_fwd_bwd_peak`)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.parallel import make_mesh
+    from csm_tpu_torch.parallel.collectives import all_reduce_flat_
+    from csm_tpu_torch.train import make_optimizer, make_train_step
+    from csm_tpu_torch.train.loop import flatten
+    from csm_tpu_torch.utils.synthetic import synthetic_conversation_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = sp_config(layers)
+    mesh = make_mesh(data=data, seq=seq)
+    params = csm.init_params(cfg, 0, torch.bfloat16, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_conversation_batch(cfg, S, batch=B, seed=0).items()}
+    opt = make_optimizer(5e-6, total_steps=100)
+    state = opt.init(params)
+    control = _unsummed_grads_control(cfg, state, batch, sp_max_dec(S, B), opt, mesh)
+    step = make_train_step(cfg, opt, sp_max_dec(S, B), remat=True, remat_policy="auto", mesh=mesh)
+    runs = []
+    for i in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        state, m, dt, launches = _timed_step(step, state, batch)
+        runs.append(dict(ms=dt * 1e3, launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                         digest=_params_digest(state.params), **m))
+        if i == 0:
+            grad_norms = _grad_norms(state.params)
+    grads = [p.grad for p in flatten(state.params).values()]
+    torch.distributed.barrier(mesh.group("batch"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    all_reduce_flat_(grads, mesh.group("batch"))
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) * 1e3
+    del grads
+    fwd_bwd = _fwd_bwd_peak(cfg, state.params, batch, sp_max_dec(S, B), mesh)
+    return dict(coords=mesh.coords, q_offset=mesh.index("seq") * (S // seq), steps=runs,
+                grad_norms=grad_norms, control_grad_norms=control,
+                grad_allreduce_ms=allreduce_ms, fwd_bwd_peak_bytes=fwd_bwd)
+
+
+def _sp_one_process(layers: int, S: int, B: int) -> dict:
+    """The one-process first step of :func:`_sp_step_rank`'s run, its
+    gradient norms and its forward + backward peak."""
+    import torch
+
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.train import make_optimizer, make_train_step
+    from csm_tpu_torch.utils.synthetic import synthetic_conversation_batch
+
+    cfg = sp_config(layers)
+    params = csm.init_params(cfg, 0, torch.bfloat16, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_conversation_batch(cfg, S, batch=B, seed=0).items()}
+    opt = make_optimizer(5e-6, total_steps=100)
+    state = opt.init(params)
+    train_step = make_train_step(cfg, opt, sp_max_dec(S, B), remat=True, remat_policy="auto")
+    torch.cuda.reset_peak_memory_stats()
+    state, m, dt, launches = _timed_step(train_step, state, batch)
+    rec = dict(ms=dt * 1e3, launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               grad_norms=_grad_norms(state.params), **m)
+    rec["fwd_bwd_peak_bytes"] = _fwd_bwd_peak(cfg, state.params, batch, sp_max_dec(S, B))
+    del state, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_training() -> dict:
+    """The sharded train steps of ``SP_RUNS``, each on ranks spawned by
+    ``csm_tpu_torch.parallel.launch`` sharing ``cuda:0`` over gloo, against
+    a one-process step on the same configuration and global batch."""
+    import torch
+
+    from csm_tpu_torch.parallel.launch import launch
+
+    rec = {}
+    for data, seq, layers, S, B, steps in SP_RUNS:
+        tag = f"sharded train data={data} x seq={seq}, {layers} layers, S={S}, B={B}"
+        ref = _sp_one_process(layers, S, B)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch(_sp_step_rank, data * seq, data, seq, layers, S, B, steps,
+                       timeout=SP_LAUNCH_TIMEOUT, num_threads=2)
+        wall = time.perf_counter() - t0
+        first = ranks[0]["steps"][0]
+        d_loss = {k: abs(first[k] - ref[k]) / abs(ref[k])
+                  for k in ("loss", "backbone_loss", "decoder_loss")}
+        d_gn = abs(first["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        check(max(d_loss.values()) <= SP_LOSS_RTOL and d_gn <= SP_GNORM_RTOL,
+              f"{tag}: first step vs one process, losses {d_loss}, grad norm {d_gn:.2e}")
+        d_leaf = [_grad_norm_diff(r["grad_norms"], ref["grad_norms"]) for r in ranks]
+        d_ctrl = [_grad_norm_diff(r["control_grad_norms"], ref["grad_norms"]) for r in ranks]
+        check(max(d for d, _ in d_leaf) <= SP_GRAD_NORM_RTOL,
+              f"{tag}: first step's per-parameter gradient norms vs one process {d_leaf}")
+        check(min(d for d, _ in d_ctrl) > SP_GRAD_NORM_RTOL,
+              f"{tag}: the lost reduce-scatter control passed the gradient gate: {d_ctrl}")
+        for i in range(steps):
+            digests = {r["steps"][i]["digest"] for r in ranks}
+            check(len(digests) == 1, f"{tag}: step {i}: parameters differ across ranks")
+            for r in ranks:
+                st = r["steps"][i]
+                check(all(math.isfinite(st[k]) for k in ("loss", "grad_norm")),
+                      f"{tag}: step {i} rank {r['coords']}: non-finite metrics")
+                want = {"flash_fwd": layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+                check(st["launches"] == want, f"{tag}: step {i} rank {r['coords']}: launches "
+                      f"{st['launches']}, want {want}")
+        for r in ranks:
+            st = r["steps"]
+            log(f"{tag}: rank {r['coords']} q_offset {r['q_offset']}: steps "
+                + ", ".join(f"{x['ms']:.0f} ms" for x in st)
+                + f", loss {st[0]['loss']:.4f} (backbone {st[0]['backbone_loss']:.4f}, decoder "
+                f"{st[0]['decoder_loss']:.4f}), grad norm {st[0]['grad_norm']:.4f}, launches a step "
+                f"{st[0]['launches']}, peak {max(x['peak_memory_bytes'] for x in st) / 2**30:.2f} GiB "
+                f"(forward + backward {r['fwd_bwd_peak_bytes'] / 2**30:.2f} GiB above the resident "
+                f"state), gradient all-reduce alone {r['grad_allreduce_ms']:.0f} ms")
+        log(f"{tag}: one process loss {ref['loss']:.4f}, grad norm {ref['grad_norm']:.4f}, peak "
+            f"{ref['peak_memory_bytes'] / 2**30:.2f} GiB (forward + backward "
+            f"{ref['fwd_bwd_peak_bytes'] / 2**30:.2f} GiB); relative difference of the first step "
+            + ", ".join(f"{k} {x:.2e}" for k, x in d_loss.items()) + f", grad norm {d_gn:.2e} "
+            f"(limits {SP_LOSS_RTOL}, {SP_GNORM_RTOL}); per-parameter gradient norms, "
+            "worst a rank " + ", ".join(f"{d:.2e} ({n})" for d, n in d_leaf) + ", control "
+            + ", ".join(f"{d:.2e} ({n})" for d, n in d_ctrl) + f" (limit {SP_GRAD_NORM_RTOL}); "
+            f"parameters bitwise equal across ranks every step; {wall:.1f} s with the ranks' "
+            "start")
+        launches = {k: sum(st["launches"][k] for r in ranks for st in r["steps"])
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        rec[f"data{data}_seq{seq}"] = dict(
+            config=dict(data=data, seq=seq, layers=layers, S=S, B=B, steps=steps), ranks=ranks,
+            one_process=ref, loss_rel_diff=d_loss, grad_norm_rel_diff=d_gn,
+            grad_norms_rel_diff=d_leaf, control_grad_norms_rel_diff=d_ctrl, wall_s=wall,
+            launches=launches)
+    return rec
+
 
 def main() -> int:
     import torch
@@ -1778,23 +2222,45 @@ def main() -> int:
     t0 = time.perf_counter()
     results["sharpened"] = sharpened_agreement(cfg)
     log(f"phase 9 (sharpened weights) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    q_off = {dt: check_q_offset(gen, dt) for dt in ("bfloat16", "float32")}
+    torch.cuda.empty_cache()
+    results["q_offset"] = q_off
+    results["sharded_training"] = sharded_training()
+    log(f"phase 13 (sequence parallelism) in {time.perf_counter() - t0:.1f} s")
 
     fb = flash_bwd[(1, TRAIN_S, "bfloat16")]
     tl = train["launches"]
     s4, sv = results["serving_int4"]["launches"], results["serving_int8"]["launches"]
+    sp = {k: sum(r["launches"][k] for r in results["sharded_training"].values())
+          for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def shard_readings(part: str) -> dict:
+        """The bf16 q_offset readings of one kernel, per shard count."""
+        return {f"{n}_shards": [
+            dict(q_offset=x["q_offset"], ms=x["ms"][part], bound_ms=x["bound_ms"][part],
+                 bound_by=x["bound_by"][part],
+                 plain_ms=x["plain_ms"]["fwd" if part == "fwd" else "bwd"],
+                 library_ms=x["library_ms"]["fwd" if part == "fwd" else "bwd"])
+            for x in rec["shards"]] for n, rec in q_off["bfloat16"].items()}
+
     rows = [
         dict(name="flash_fwd", route="cuda", source="csm_tpu_torch/csrc/flash_fwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:104", r=flash[8],
-             launches=counters["flash_fwd"] + tl["flash_fwd"] + s4["flash_fwd"],
+             launches=counters["flash_fwd"] + tl["flash_fwd"] + s4["flash_fwd"] + sp["flash_fwd"],
              launches_by_path=dict(generate=counters["flash_fwd"], train=tl["flash_fwd"],
-                                   serve=s4["flash_fwd"]),
-             with_lse=dict(fb["fwd"], shape=fb["shape"])),
+                                   serve=s4["flash_fwd"], train_sharded=sp["flash_fwd"]),
+             with_lse=dict(fb["fwd"], shape=fb["shape"]), q_offset=shard_readings("fwd")),
         dict(name="flash_bwd_dq", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:303", r=dict(fb["dq"], shape=fb["shape"]),
-             launches=tl["flash_bwd_dq"]),
+             launches=tl["flash_bwd_dq"] + sp["flash_bwd_dq"],
+             launches_by_path=dict(train=tl["flash_bwd_dq"], train_sharded=sp["flash_bwd_dq"]),
+             q_offset=shard_readings("dq")),
         dict(name="flash_bwd_dkv", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:367", r=dict(fb["dkv"], shape=fb["shape"]),
-             launches=tl["flash_bwd_dkv"]),
+             launches=tl["flash_bwd_dkv"] + sp["flash_bwd_dkv"],
+             launches_by_path=dict(train=tl["flash_bwd_dkv"], train_sharded=sp["flash_bwd_dkv"]),
+             q_offset=shard_readings("dkv")),
         dict(name="bb_decode", route="cuda", source="csm_tpu_torch/csrc/bb_decode.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1]),
         dict(name="bb_decode_q", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",

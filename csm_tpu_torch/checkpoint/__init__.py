@@ -11,5 +11,6 @@ from csm_tpu_torch.checkpoint.hf_convert import (  # noqa: F401
 from csm_tpu_torch.checkpoint.train_state import (  # noqa: F401
     latest_step,
     load_checkpoint,
+    on_rank_zero,
     save_checkpoint,
 )

@@ -7,15 +7,20 @@ resume from the latest.
 Layout: ``<directory>/<step>/state.pt``.  A bundle is written to a temporary
 file and renamed into place, so a step directory that exists holds a
 complete bundle.
+
+Under a process group (data- or sequence-parallel training, whose replicas
+hold the same state) rank 0 writes, between two barriers: no rank reads a
+directory that is being written, and every rank restores from it.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 _FILE = "state.pt"
 
@@ -37,18 +42,35 @@ def _to_host(x: Any) -> Any:
     return x
 
 
+def on_rank_zero(write: Callable[[], None]) -> None:
+    """Run ``write`` on rank 0 of the running process group, between two
+    barriers (every rank calls this); without a group, just run it."""
+    if not dist.is_initialized():
+        write()
+        return
+    dist.barrier()
+    if dist.get_rank() == 0:
+        write()
+    dist.barrier()
+
+
 def save_checkpoint(directory: str, step: int, state: Any, max_to_keep: Optional[int] = 3) -> None:
     """Save ``state`` (nested dicts / lists of tensors and plain values;
     tensors are copied to the host) at ``step``, then drop the oldest steps
-    beyond ``max_to_keep`` (``None`` keeps all)."""
-    out = os.path.join(os.path.abspath(directory), str(int(step)))
-    os.makedirs(out, exist_ok=True)
-    tmp = os.path.join(out, f"{_FILE}.{os.getpid()}.tmp")
-    torch.save(_to_host(state), tmp)
-    os.replace(tmp, os.path.join(out, _FILE))
-    if max_to_keep is not None:
-        for old in _steps(directory)[:-max_to_keep]:
-            shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+    beyond ``max_to_keep`` (``None`` keeps all).  Under a process group,
+    every rank calls it and rank 0 writes (:func:`on_rank_zero`)."""
+
+    def write():
+        out = os.path.join(os.path.abspath(directory), str(int(step)))
+        os.makedirs(out, exist_ok=True)
+        tmp = os.path.join(out, f"{_FILE}.{os.getpid()}.tmp")
+        torch.save(_to_host(state), tmp)
+        os.replace(tmp, os.path.join(out, _FILE))
+        if max_to_keep is not None:
+            for old in _steps(directory)[:-max_to_keep]:
+                shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+
+    on_rank_zero(write)
 
 
 def latest_step(directory: str) -> Optional[int]:

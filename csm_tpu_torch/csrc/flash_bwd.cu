@@ -20,6 +20,17 @@
 // element is summed by one thread in a fixed order, so two runs give
 // bitwise-equal gradients.
 //
+// q_offset (causal only) is the absolute position of query row 0, as in
+// flash_fwd.cu: a shard of sequence-parallel training passes seq_rank *
+// S_local with k / v over the whole gathered sequence.  K5a walks the same
+// key tiles from key 0 as the unsharded launch, and the tiles one launch
+// visits and the other does not are wholly masked for the row (p = 0
+// exactly), so a shard's dq rows are bitwise equal to the unsharded dq.
+// K5b starts at the first local query tile that can see its key tile
+// (_i_first of the TPU kernel); a key tile that lies wholly after the
+// shard's last row visits none and is written as zeros, which the
+// all-gather's backward then sums into its owner's dk / dv.
+//
 // Design (simple first version): 256 threads per block, 64-row tiles staged
 // in shared memory as fp32 with a row stride of hd + 1 (column reads across
 // a warp fall in distinct banks); each thread holds a 4 x 4 block of the
@@ -113,11 +124,12 @@ __device__ __forceinline__ void score_block(const float* sQ, const float* sdO, c
   }
 }
 
-// p of one score: masked keys (invalid, or after the row when causal) take
+// p of one score (row at absolute position pos): masked keys (invalid, or
+// after the row when causal) take
 // NEG_INF; dead rows (lse <= NEG_INF / 2) take 0.
-__device__ __forceinline__ float prob(float dot, float scale, bool key_ok, int row, int key,
+__device__ __forceinline__ float prob(float dot, float scale, bool key_ok, int pos, int key,
                                       int causal, float lse) {
-  const bool ok = key_ok && (!causal || key <= row);
+  const bool ok = key_ok && (!causal || key <= pos);
   const float s = ok ? dot * scale : NEG_INF;
   return lse <= NEG_INF / 2 ? 0.f : expf(s - lse);
 }
@@ -142,7 +154,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
                     const float* __restrict__ lse,          // [B, nkv*G, S]
                     const float* __restrict__ delta,        // [B, nkv*G, S]
                     T* __restrict__ dq,                     // [B, S, nkv*G, HD]
-                    int S, int T_, int nkv, int causal, float scale) {
+                    int S, int T_, int nkv, int causal, int q_offset, float scale) {
   constexpr int LD = HD + 1;
   constexpr int DE = HD / 16;
   extern __shared__ float smem[];
@@ -161,7 +173,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
   const int b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   // Keys any row of this tile may see: causality stops at its last row.
-  const int kend = causal ? min(T_, min(S, i0 + TILE)) : T_;
+  const int kend = causal ? min(T_, q_offset + min(S, i0 + TILE)) : T_;
   const size_t kv_off = ((size_t)b * T_ * nkv + kvh) * HD;
 
   for (int gi = 0; gi < G; ++gi) {
@@ -198,7 +210,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = tx + 16 * c;
-          const float p = prob(s[a][c], scale, sOk[col] != 0, i0 + r, j0 + col, causal, sL[r]);
+          const float p = prob(s[a][c], scale, sOk[col] != 0, q_offset + i0 + r, j0 + col,
+                               causal, sL[r]);
           sdS[r * LDS + col] = round_to<T>(p * (dp[a][c] - sD[r]) * scale);
         }
       }
@@ -241,7 +254,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD
                      const float* __restrict__ delta,        // [B, nkv*G, S]
                      T* __restrict__ dk,                     // [B, T, nkv, HD]
                      T* __restrict__ dv,                     // [B, T, nkv, HD]
-                     int S, int T_, int nkv, int causal, float scale) {
+                     int S, int T_, int nkv, int causal, int q_offset, float scale) {
   constexpr int LD = HD + 1;
   constexpr int DE = HD / 16;
   extern __shared__ float smem[];
@@ -274,8 +287,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD
 #pragma unroll
     for (int e = 0; e < DE; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
 
-  // The first query tile that can see this key tile.
-  const int i_start = causal ? (j0 / TILE) * TILE : 0;
+  // The first local query tile that can see this key tile (local row r sees
+  // key j when j <= q_offset + r); at or past S when none can.
+  const int i_start = (causal && j0 > q_offset) ? ((j0 - q_offset) / TILE) * TILE : 0;
   for (int gi = 0; gi < G; ++gi) {
     const int hq = kvh * G + gi;
     const size_t q_off = ((size_t)b * S * nq + hq) * HD;
@@ -298,7 +312,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = tx + 16 * c;
-          const float p = prob(s[a][c], scale, sOk[col] != 0, i0 + r, j0 + col, causal, sL[r]);
+          const float p = prob(s[a][c], scale, sOk[col] != 0, q_offset + i0 + r, j0 + col,
+                               causal, sL[r]);
           sP[r * LDS + col] = round_to<T>(p);
           sdS[r * LDS + col] = round_to<T>(p * (dp[a][c] - sD[r]) * scale);
         }
@@ -343,7 +358,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD
 struct Args {
   const void *q, *k, *v, *valid, *dout, *lse, *delta;
   void *o0, *o1;  // dq, or dk and dv
-  int B, S, T, nkv, causal;
+  int B, S, T, nkv, causal, q_offset;
   float scale;
   cudaStream_t st;
 };
@@ -365,7 +380,7 @@ int launch_dq(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int32_t*>(a.valid), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.o0), a.S, a.T, a.nkv, a.causal, a.scale);
+      static_cast<T*>(a.o0), a.S, a.T, a.nkv, a.causal, a.q_offset, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -380,7 +395,8 @@ int launch_dkv(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int32_t*>(a.valid), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.S, a.T, a.nkv, a.causal, a.scale);
+      static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.S, a.T, a.nkv, a.causal, a.q_offset,
+      a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -406,7 +422,8 @@ int by_head_dim(int hd, int g, const Args& a) {
 
 template <bool DQ>
 int dispatch(int nq, int hd, int fp32, const Args& a) {
-  if (a.nkv <= 0 || nq % a.nkv != 0 || a.S <= 0 || a.T <= 0 || a.B <= 0)
+  if (a.nkv <= 0 || nq % a.nkv != 0 || a.S <= 0 || a.T <= 0 || a.B <= 0 || a.q_offset < 0 ||
+      (!a.causal && a.q_offset != 0))
     return (int)cudaErrorInvalidValue;
   const int g = nq / a.nkv;
   return fp32 ? by_head_dim<DQ, float>(hd, g, a) : by_head_dim<DQ, bf16>(hd, g, a);
@@ -418,14 +435,16 @@ extern "C" {
 
 // q / dout [B,S,nq,hd] and k / v [B,T,nkv,hd] contiguous, all bf16 (fp32 =
 // 0) or all fp32 (fp32 = 1); key_valid [B,T] int32; lse and delta [B,nq,S]
-// fp32.  hd must be 16, 32 or 64 and nq/nkv one of 1, 2, 4.
+// fp32.  hd must be 16, 32 or 64 and nq/nkv one of 1, 2, 4.  q_offset >= 0
+// is the absolute position of query row 0 (0 when causal = 0).
 //
 // K5a: dq [B,S,nq,hd] in the operands' type.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* key_valid,
                  const void* dout, const void* lse, const void* delta, void* dq, int B, int S,
-                 int T, int nq, int nkv, int hd, int fp32, int causal, void* stream) {
+                 int T, int nq, int nkv, int hd, int fp32, int causal, int q_offset,
+                 void* stream) {
   const Args a{q, k, v, key_valid, dout, lse, delta, dq, nullptr, B, S, T, nkv, causal,
-               1.0f / sqrtf((float)hd), static_cast<cudaStream_t>(stream)};
+               q_offset, 1.0f / sqrtf((float)hd), static_cast<cudaStream_t>(stream)};
   return dispatch<true>(nq, hd, fp32, a);
 }
 
@@ -433,8 +452,8 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* key_va
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* key_valid,
                   const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                   int B, int S, int T, int nq, int nkv, int hd, int fp32, int causal,
-                  void* stream) {
-  const Args a{q, k, v, key_valid, dout, lse, delta, dk, dv, B, S, T, nkv, causal,
+                  int q_offset, void* stream) {
+  const Args a{q, k, v, key_valid, dout, lse, delta, dk, dv, B, S, T, nkv, causal, q_offset,
                1.0f / sqrtf((float)hd), static_cast<cudaStream_t>(stream)};
   return dispatch<false>(nq, hd, fp32, a);
 }

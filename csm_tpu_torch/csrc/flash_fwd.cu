@@ -15,6 +15,17 @@
 // to exactly NEG_INF, which is how the backward kernels (flash_bwd.cu) find
 // such rows.
 //
+// q_offset (causal only) is the absolute position of query row 0: 0 for the
+// prefill and one-device training, seq_rank * S_local for a shard of
+// sequence-parallel training, whose keys are the whole gathered sequence.
+// Key tiles always start at key 0 and go up in the same steps, so a live row
+// visits the same tiles in the same order as in the unsharded launch, and the
+// tiles that one launch visits and the other does not are wholly masked for
+// that row (each adds exactly 0 to l and to the accumulator).  A shard's
+// output and lse rows are therefore bitwise equal to the unsharded kernel's,
+// dead rows' output (garbage by contract: uniform over the visited keys)
+// aside.
+//
 // Design (simple first version): one block per (64-row query tile, kv head,
 // batch row); thread t owns query row t % 64 of head t / 64 of the group, with
 // its q row and output accumulator in registers.  K/V tiles (32 keys in bf16,
@@ -104,7 +115,7 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
                  const int32_t* __restrict__ key_valid,  // [B, T]
                  T* __restrict__ o,                      // [B, S, nkv*G, HD]
                  float* __restrict__ lse,                // [B, nkv*G, S] or null
-                 int S, int T_, int nkv, int causal, float scale) {
+                 int S, int T_, int nkv, int causal, int q_offset, float scale) {
   constexpr int NT = G * BQ;
   constexpr int BK = sizeof(T) == 2 ? 32 : 16;  // keys per tile (shared memory < 48 KB)
   constexpr int VN = Vec<T>::N;
@@ -113,7 +124,8 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int s = i0 + tid % BQ;  // this thread's query row
+  const int s = i0 + tid % BQ;  // this thread's query row (local)
+  const int pos = q_offset + s;  // and its absolute position
   const int hq = kvh * G + tid / BQ;
   const bool row_ok = s < S;
 
@@ -137,8 +149,8 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
   float m = NEG_INF, l = 0.f;
 
   // Keys any row of this tile may see: causality stops at the tile's last
-  // row, so window slots at or past S are never read.
-  const int kend = causal ? min(T_, min(S, i0 + BQ)) : T_;
+  // row, so window slots past its position are never read.
+  const int kend = causal ? min(T_, q_offset + min(S, i0 + BQ)) : T_;
   for (int j0 = 0; j0 < kend; j0 += BK) {
     for (int idx = tid; idx < BK * HD / VN; idx += NT) {
       const int jj = idx / (HD / VN), dd = (idx % (HD / VN)) * VN;
@@ -168,7 +180,7 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
         dot = fmaf(qr[d], kf.x, dot);
         dot = fmaf(qr[d + 1], kf.y, dot);
       }
-      const bool ok = key_ok[jj] && (!causal || j0 + jj <= s);
+      const bool ok = key_ok[jj] && (!causal || j0 + jj <= pos);
       const float sv = ok ? dot * scale : NEG_INF;
       sc[tid][jj] = sv;
       mt = fmaxf(mt, sv);
@@ -210,7 +222,7 @@ flash_fwd_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
 struct Args {
   const void *q, *k, *v, *valid;
   void *o, *lse;
-  int B, S, T, nkv, causal;
+  int B, S, T, nkv, causal, q_offset;
   float scale;
   cudaStream_t st;
 };
@@ -221,7 +233,7 @@ int launch(const Args& a) {
   flash_fwd_kernel<T, HD, G><<<grid, G * BQ, 0, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int32_t*>(a.valid), static_cast<T*>(a.o), static_cast<float*>(a.lse),
-      a.S, a.T, a.nkv, a.causal, a.scale);
+      a.S, a.T, a.nkv, a.causal, a.q_offset, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -253,14 +265,16 @@ extern "C" {
 // fp32 (fp32 = 1); key_valid [B,T] int32; o [B,S,nq,hd] in the same type;
 // lse [B,nq,S] fp32, or null for no log-sum-exp output.  hd must be 16, 32
 // or 64 and nq/nkv one of 1, 2, 4.  causal = 0 lets every query see every
-// valid key.
+// valid key.  q_offset >= 0 is the absolute position of query row 0, and
+// must be 0 when causal = 0.
 int flash_fwd(const void* q, const void* k, const void* v, const void* key_valid, void* o,
               void* lse, int B, int S, int T, int nq, int nkv, int hd, int fp32, int causal,
-              void* stream) {
-  if (nkv <= 0 || nq % nkv != 0 || S <= 0 || T <= 0 || B <= 0)
+              int q_offset, void* stream) {
+  if (nkv <= 0 || nq % nkv != 0 || S <= 0 || T <= 0 || B <= 0 || q_offset < 0 ||
+      (!causal && q_offset != 0))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, key_valid, o, lse, B, S, T, nkv, causal, 1.0f / sqrtf((float)hd),
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, key_valid, o, lse, B, S, T, nkv, causal, q_offset,
+               1.0f / sqrtf((float)hd), static_cast<cudaStream_t>(stream)};
   const int g = nq / nkv;
   return fp32 ? by_head_dim<float>(hd, g, a) : by_head_dim<bf16>(hd, g, a);
 }

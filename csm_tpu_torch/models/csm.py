@@ -12,6 +12,17 @@
   ``[hidden; cb0..cb31]``, classified per codebook with ``audio_head`` and
   averaged over non-ignored targets.  The frame gather is padded/truncated
   to a static ``max_decoder_frames`` with zero-weight slots.
+
+Data- and sequence-parallel training (``forward(sp_mesh=mesh)``): every rank
+holds the full global batch and computes its rows (``data``) and frames
+(``seq``) of it.  RoPE positions are global; the backbone CE pairs each
+local frame's logits with the global next frame's label; the decoder frames
+are chosen over the global validity and each is computed on the rank that
+holds its conditioning hidden state (frame 0's wrap to ``S - 1`` on the last
+``seq`` rank).  Loss sums and target counts are all-reduced, so every rank
+returns the global masked means, with the gradient of its own share of them:
+summed over the ranks, the gradient of the one-device loss on the global
+batch.
 """
 
 from __future__ import annotations
@@ -24,8 +35,10 @@ import torch
 from csm_tpu_torch.config import CSMConfig
 from csm_tpu_torch.models import llama
 from csm_tpu_torch.models.llama import NEG_INF, KVCache, write_rows
-from csm_tpu_torch.ops.attention import flash_eligible
+from csm_tpu_torch.ops.attention import flash_eligible, sp_flash_eligible
 from csm_tpu_torch.ops.rope import compute_rope_table, gather_rope
+from csm_tpu_torch.parallel.collectives import all_gather_frames, all_reduce_sum
+from csm_tpu_torch.parallel.mesh import batch_sharding
 
 
 @dataclasses.dataclass
@@ -90,23 +103,14 @@ def embed_frames(
     return audio_sum + text_emb * m[..., N, None]
 
 
-def _masked_ce(
-    logits: torch.Tensor,  # [N, V]
-    targets: torch.Tensor,  # [N], -100 = ignore
-    weight: Optional[torch.Tensor] = None,  # [N] extra 0/1 weight
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean fp32 cross-entropy over non-ignored targets; 0.0 (not NaN) when
-    there is none.  Returns ``(loss, count)``."""
+def _ce_sum(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of fp32 cross-entropy, count)`` of ``[N, V]`` logits over the
+    non-ignored ``[N]`` targets (-100 = ignore)."""
     valid = targets != -100
-    if weight is not None:
-        valid = valid & (weight > 0)
     safe = torch.where(valid, targets, torch.zeros_like(targets)).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(1, safe[:, None])[:, 0]
-    n = valid.sum()
-    total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    loss = torch.where(n > 0, total / n.clamp(min=1), torch.zeros_like(total))
-    return loss, n
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(), valid.sum()
 
 
 def _select_decoder_frames(valid: torch.Tensor, max_frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,6 +135,7 @@ def backbone_forward(
     use_flash: bool = True,
     remat: bool = False,
     remat_policy: str = "nothing",
+    sp_mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Embed-sum + backbone stack -> hidden ``[B, S, D]``.
 
@@ -141,38 +146,31 @@ def backbone_forward(
     ``qbb``: int8 layer weights (:mod:`csm_tpu_torch.ops.quant`) for W8A16
     products.  ``use_flash=False`` forces the plain attention path of the
     uncached pass; ``remat`` / ``remat_policy`` checkpoint its layers
-    (:func:`csm_tpu_torch.models.llama.forward`)."""
-    B, S, _ = input_ids.shape
-    dev = input_ids.device
-    bcfg = config.backbone
-    h = embed_frames(params, config, input_ids, attention_mask)
-    if attention_mask is not None:
-        frame_valid = attention_mask.sum(dim=-1) > 0
-    else:
-        frame_valid = torch.ones((B, S), dtype=torch.bool, device=dev)
-    rope = compute_rope_table(bcfg, config.max_seq_len, dev)
-    weight = params["backbone"]["layers"]["wq"]
-
+    (:func:`csm_tpu_torch.models.llama.forward`).  ``sp_mesh``: a
+    :class:`~csm_tpu_torch.parallel.Mesh`; the uncached pass then takes the
+    global batch and returns this rank's block of hidden ``[B / data,
+    S / seq, D]`` (module docstring)."""
+    sp_mesh = _active(sp_mesh)
     if cache is None:
-        positions = torch.arange(S, device=dev).expand(B, S)
-        if use_flash and flash_eligible(S, bcfg, weight):
-            bias, flash_valid = None, frame_valid
-        else:
-            bias, flash_valid = llama.make_causal_bias(frame_valid, S), None
-        hidden, _ = llama.forward(
-            params["backbone"], bcfg, h, rope_table=rope, positions=positions,
-            attn_bias=bias, flash_key_valid=flash_valid, qlayers=qbb, remat=remat,
-            remat_policy=remat_policy,
-        )
-        return hidden, None
+        if sp_mesh is not None and qbb is not None:
+            raise ValueError("a mesh runs the unquantized pass only")
+        return _backbone_uncached(params, config, input_ids, attention_mask, sp_mesh, qbb,
+                                  use_flash, remat, remat_policy), None
+    if sp_mesh is not None:
+        raise ValueError("a mesh runs the uncached pass only")
 
     # Cached path: record this chunk's validity in the window (in place),
     # then attend over the whole static window.
+    B, S, _ = input_ids.shape
+    dev = input_ids.device
+    bcfg = config.backbone
+    h, frame_valid = _embed(params, config, input_ids, attention_mask)
+    rope = compute_rope_table(bcfg, config.max_seq_len, dev)
     start = cache.index
     base = torch.as_tensor(start, device=dev).reshape(-1, 1)
     positions = (base + torch.arange(S, device=dev)).expand(B, S)
     write_rows(cache.valid, frame_valid, start)
-    if flash_prefill and flash_eligible(S, bcfg, weight):
+    if flash_prefill and flash_eligible(S, bcfg, params["backbone"]["layers"]["wq"]):
         bias, flash_valid = None, cache.valid
     else:
         bias, flash_valid = llama.make_causal_bias(cache.valid, S, q_offset=start), None
@@ -180,6 +178,66 @@ def backbone_forward(
         params["backbone"], bcfg, h, rope_table=rope, positions=positions,
         attn_bias=bias, cache=cache, flash_key_valid=flash_valid, qlayers=qbb,
     )
+
+
+def _active(mesh):
+    """The mesh, or None when it has a single rank on ``data`` x ``seq``."""
+    if mesh is None or mesh.size("data") * mesh.size("seq") == 1:
+        return None
+    return mesh
+
+
+def _group(mesh, axis: str):
+    """The mesh's process group on ``axis``; None (the identity) without a
+    mesh."""
+    return None if mesh is None else mesh.group(axis)
+
+
+def _embed(params, config, input_ids, attention_mask):
+    """``(embedded frames [B, S, D], frame validity [B, S])``: a frame is
+    valid when any of its 33 tokens is."""
+    h = embed_frames(params, config, input_ids, attention_mask)
+    if attention_mask is not None:
+        return h, attention_mask.sum(dim=-1) > 0
+    return h, torch.ones(input_ids.shape[:2], dtype=torch.bool, device=input_ids.device)
+
+
+def _backbone_uncached(params, config, input_ids, attention_mask, mesh, qbb, use_flash, remat,
+                       remat_policy) -> torch.Tensor:
+    """The uncached pass over this rank's block of a global batch (the
+    whole batch without a mesh): its rows and frames embedded at their
+    global positions; attention over the keys of the whole sequence,
+    gathered over ``seq``."""
+    B, S, _ = input_ids.shape
+    rows, frames = batch_sharding(mesh, B, S)
+    ids = input_ids[rows, frames]
+    mask = None if attention_mask is None else attention_mask[rows, frames]
+    h, frame_valid = _embed(params, config, ids, mask)
+    Bl, Sl = frame_valid.shape
+    dev = ids.device
+    bcfg = config.backbone
+    rope = compute_rope_table(bcfg, config.max_seq_len, dev)
+    positions = (frames.start + torch.arange(Sl, device=dev)).expand(Bl, Sl)
+    weight = params["backbone"]["layers"]["wq"]
+    seq_mesh = mesh if mesh is not None and mesh.size("seq") > 1 else None
+    if seq_mesh is None:
+        flash = use_flash and flash_eligible(Sl, bcfg, weight)
+    else:
+        flash = use_flash and sp_flash_eligible(
+            mesh, B, S, bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim,
+            weight.dtype)
+    if flash:
+        bias, flash_valid = None, frame_valid
+    else:
+        keys_valid = all_gather_frames(frame_valid.to(torch.int32), _group(seq_mesh, "seq"))
+        bias = llama.make_causal_bias(keys_valid.bool(), Sl, q_offset=frames.start)
+        flash_valid = None
+    hidden, _ = llama.forward(
+        params["backbone"], bcfg, h, rope_table=rope, positions=positions, attn_bias=bias,
+        flash_key_valid=flash_valid, qlayers=qbb, remat=remat, remat_policy=remat_policy,
+        sp_mesh=seq_mesh,
+    )
+    return hidden
 
 
 def decoder_forward_full(params: dict, config: CSMConfig, decoder_inputs: torch.Tensor) -> torch.Tensor:
@@ -256,6 +314,7 @@ def forward(
     use_flash: bool = True,
     remat: bool = False,
     remat_policy: str = "nothing",
+    sp_mesh=None,
 ) -> CSMOutput:
     """Full forward with optional training losses.
 
@@ -267,12 +326,16 @@ def forward(
     the int8 and int4 ones) then go through that tier's backbone kernel.  ``qbb``: int8
     layer weights for the plain backbone's W8A16 products.  ``use_flash``,
     ``remat``, ``remat_policy``: see :func:`backbone_forward` (the training
-    step sets them)."""
+    step sets them).  ``sp_mesh``: a :class:`~csm_tpu_torch.parallel.Mesh`
+    of ``data`` x ``seq`` ranks; the arguments are then the global batch,
+    hidden-side outputs are this rank's block and the losses are the global
+    ones (module docstring)."""
     from csm_tpu_torch.ops.bb_kernel import MAX_VALIDATED_B, MAX_VALIDATED_B_EXACT
 
     B, S, _ = input_ids.shape
-    N = config.audio_num_codebooks
-    Va = config.audio_vocab_size
+    mesh = _active(sp_mesh)
+    if mesh is not None and (cache is not None or qsb is not None or last_index is not None):
+        raise ValueError("a mesh runs the uncached training / evaluation forward only")
     if (
         qsb is not None and cache is not None and S == 1
         and B <= (MAX_VALIDATED_B if "s" in qsb else MAX_VALIDATED_B_EXACT)
@@ -283,7 +346,7 @@ def forward(
     hidden, new_cache = backbone_forward(
         params, config, input_ids, attention_mask, cache=cache,
         flash_prefill=flash_prefill, qbb=qbb, use_flash=use_flash, remat=remat,
-        remat_policy=remat_policy,
+        remat_policy=remat_policy, sp_mesh=mesh,
     )
     head = params["codebook0_head"]
     last_h = hidden[:, -1, :] if last_index is None else hidden[:, last_index, :]
@@ -294,34 +357,8 @@ def forward(
     c0_all = hidden @ head if (labels is not None or return_all_logits) else None
 
     if labels is not None:
-        labels = labels.long()
-        backbone_loss, backbone_targets = _masked_ce(
-            c0_all[:, :-1, :].reshape(-1, Va), labels[:, 1:, 0].reshape(-1)
-        )
-        if max_decoder_frames is None:
-            max_decoder_frames = B * S
-        audio_labels = labels[..., :N]
-        valid = (audio_labels != -100).all(dim=-1)  # [B, S]
-        idx, weight = _select_decoder_frames(valid, max_decoder_frames)
-        b_idx, t_idx = idx // S, idx % S
-        # Hidden at t-1 predicted frame t; t=0 wraps to S-1 as the
-        # reference's negative index does.
-        prev_h = hidden[b_idx, (t_idx - 1) % S]
-        frame_codebooks = input_ids[b_idx, t_idx, :N].long()
-        frame_labels = audio_labels[b_idx, t_idx]
-        proj = params["projection"]
-        offsets = torch.arange(N, device=idx.device) * Va
-        cb_emb = params["audio_embeddings"][frame_codebooks + offsets]  # [F, N, D]
-        dec_in = torch.cat([(prev_h @ proj)[:, None, :], cb_emb @ proj], dim=1)
-        dec_hidden = decoder_forward_full(params, config, dec_in)
-        cb_logits = torch.einsum(
-            "fcd,cdv->fcv", dec_hidden[:, 1:N, :].float(), params["audio_head"].float()
-        )
-        targets = frame_labels[:, 1:]
-        w = weight[:, None].expand_as(targets)
-        decoder_loss, decoder_targets = _masked_ce(
-            cb_logits.reshape(-1, Va), targets.reshape(-1), w.reshape(-1)
-        )
+        backbone_loss, backbone_targets, decoder_loss, decoder_targets = _losses(
+            params, config, hidden, c0_all, input_ids, labels.long(), max_decoder_frames, mesh)
         loss = backbone_loss + decoder_loss
 
     return CSMOutput(
@@ -334,3 +371,63 @@ def forward(
         backbone_targets=backbone_targets,
         decoder_targets=decoder_targets,
     )
+
+
+def _decoder_logits(params: dict, config: CSMConfig, prev_h: torch.Tensor,
+                    frame_codebooks: torch.Tensor) -> torch.Tensor:
+    """fp32 logits ``[F, N-1, Va]`` of codebooks 1..N-1 for ``F`` frames:
+    the decoder over ``[prev_h; cb0..cbN-1]`` projected, then ``audio_head``."""
+    N, Va = config.audio_num_codebooks, config.audio_vocab_size
+    proj = params["projection"]
+    offsets = torch.arange(N, device=prev_h.device) * Va
+    cb_emb = params["audio_embeddings"][frame_codebooks.long() + offsets]  # [F, N, D]
+    dec_in = torch.cat([(prev_h @ proj)[:, None, :], cb_emb @ proj], dim=1)
+    dec_hidden = decoder_forward_full(params, config, dec_in)
+    return torch.einsum("fcd,cdv->fcv", dec_hidden[:, 1:N, :].float(),
+                        params["audio_head"].float())
+
+
+def _losses(params, config, hidden, c0, input_ids, labels, max_decoder_frames, mesh):
+    """The two losses of a global batch from this rank's block (``hidden``,
+    ``c0`` = its codebook-0 logits; the whole batch without a mesh):
+    ``(backbone_loss, backbone_targets, decoder_loss, decoder_targets)``,
+    each loss the global masked mean (0 without targets) in value and the
+    gradient of this rank's share of it."""
+    B, S = labels.shape[:2]
+    N, Va = config.audio_num_codebooks, config.audio_vocab_size
+    rows, frames = batch_sharding(mesh, B, S)
+    Sl = hidden.shape[1]
+    # Backbone: local frame t against the global label of t + 1; the last
+    # global frame has no target.
+    tgt = labels[rows, frames.start + 1:frames.stop + 1, 0]
+    tgt = torch.nn.functional.pad(tgt, (0, Sl - tgt.shape[1]), value=-100)
+    bb_sum, bb_n = _ce_sum(c0.reshape(-1, Va), tgt.reshape(-1))
+
+    # Decoder: up to max_decoder_frames valid frames over the global
+    # validity, earliest first; this rank computes those whose t-1 it holds
+    # (hidden at t-1 predicts frame t; t = 0 wraps to S-1, as the
+    # reference's negative index does).
+    if max_decoder_frames is None:
+        max_decoder_frames = B * S
+    valid = (labels[..., :N] != -100).all(dim=-1)
+    idx, weight = _select_decoder_frames(valid, max_decoder_frames)
+    b_idx, t_idx = idx // S, idx % S
+    p_idx = (t_idx - 1) % S
+    mine = (weight & (b_idx >= rows.start) & (b_idx < rows.stop)
+            & (p_idx >= frames.start) & (p_idx < frames.stop))
+    b_idx, t_idx, p_idx = b_idx[mine], t_idx[mine], p_idx[mine]
+    prev_h = hidden[b_idx - rows.start, p_idx - frames.start]
+    cb_logits = _decoder_logits(params, config, prev_h, input_ids[b_idx, t_idx, :N])
+    dec_sum, dec_n = _ce_sum(cb_logits.reshape(-1, Va), labels[b_idx, t_idx, 1:N].reshape(-1))
+
+    sums = all_reduce_sum(torch.stack([bb_sum.detach(), bb_n.float(), dec_sum.detach(),
+                                       dec_n.float()]), _group(mesh, "batch"))
+
+    def mean(local, total, n):
+        # Value total / n (0 without targets), gradient of local / n.
+        n = n.clamp(min=1)
+        part = local / n
+        return total / n + (part - part.detach())
+
+    return (mean(bb_sum, sums[0], sums[1]), sums[1].long(),
+            mean(dec_sum, sums[2], sums[3]), sums[3].long())

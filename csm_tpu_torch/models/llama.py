@@ -28,6 +28,12 @@ the projections and the MLP) and the flash op's output and log-sum-exp, as
 the JAX package's ``dots_with_no_batch_dims_saveable`` plus its named flash
 output, so the backward re-runs neither the projections nor the flash
 forward.
+
+Sequence parallelism (``forward(sp_mesh=...)``): each rank holds its frames
+of the sequence; attention gathers K / V over the mesh's ``seq`` group,
+through :func:`~csm_tpu_torch.ops.flash_attention.flash_attention_sp` with
+this rank's query offset or, when the caller gives a bias instead of flash
+key validity, through the plain attention over the gathered K / V.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from torch.utils.checkpoint import (
 )
 
 from csm_tpu_torch.config import LlamaConfig
-from csm_tpu_torch.ops.flash_attention import flash_attention
+from csm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_sp
+from csm_tpu_torch.parallel.collectives import gather_frames
 from csm_tpu_torch.ops.quant import qmm
 from csm_tpu_torch.ops.rope import apply_rope, gather_rope
 
@@ -173,6 +180,7 @@ def _layer(
     cache_index: Index = 0,
     flash_key_valid: Optional[torch.Tensor] = None,
     qlayer: Optional[dict] = None,
+    sp_mesh=None,
 ) -> torch.Tensor:
     """One pre-norm block.  With ``cache_kv`` (this layer's ``[B, max_len,
     nkv, hd]`` views) the new K/V rows are written in place at
@@ -180,7 +188,10 @@ def _layer(
     ``flash_key_valid`` selects the flash kernel (queries start at absolute
     position 0: prefill or the uncached forward).  ``qlayer``: this layer's
     int8 weights (:mod:`csm_tpu_torch.ops.quant`); the products then run
-    W8A16, Q/K/V and gate/up fused, each output cast to ``h``'s dtype."""
+    W8A16, Q/K/V and gate/up fused, each output cast to ``h``'s dtype.
+    ``sp_mesh``: ``h`` is this rank's frames of a sequence sharded over the
+    mesh's ``seq`` axis; K / V are gathered over it (``bias`` then spans
+    the gathered keys)."""
     B, S, _ = h.shape
     nq, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
     F = config.intermediate_size
@@ -211,7 +222,12 @@ def _layer(
         write_rows(cv, v, cache_index)
         k, v = ck, cv
     k, v = k.to(q.dtype), v.to(q.dtype)
-    if flash_key_valid is not None:
+    if sp_mesh is not None and flash_key_valid is not None:
+        attn = flash_attention_sp(q, k, v, flash_key_valid, sp_mesh).reshape(B, S, nq * hd)
+    elif sp_mesh is not None:
+        group = sp_mesh.group("seq")
+        attn = attention(q, gather_frames(k, group), gather_frames(v, group), bias)
+    elif flash_key_valid is not None:
         attn = flash_attention(q, k, v, flash_key_valid).reshape(B, S, nq * hd)
     else:
         attn = attention(q, k, v, bias)
@@ -273,6 +289,7 @@ def forward(
     qlayers: Optional[dict] = None,
     remat: bool = False,
     remat_policy: str = "nothing",
+    sp_mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the stack.  Without a cache, T == S.  With one, the chunk's K/V
     are written (in place) at ``cache.index`` and attention spans the
@@ -281,7 +298,11 @@ def forward(
     (:func:`csm_tpu_torch.ops.quant.prepare_quantized_backbone`) for W8A16
     products.  ``remat`` (uncached passes under autograd): checkpoint each
     layer with ``remat_policy`` ``"nothing"`` or ``"dots"`` (module
-    docstring); no effect on a pass that builds no graph."""
+    docstring); no effect on a pass that builds no graph.  ``sp_mesh``
+    (uncached): ``inputs_embeds`` are this rank's frames of a sequence
+    sharded over the mesh's ``seq`` axis (see :func:`_layer`)."""
+    if sp_mesh is not None and cache is not None:
+        raise ValueError("sequence parallelism runs uncached passes only")
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}; got {remat_policy!r}")
     cos, sin = gather_rope(rope_table, positions)
@@ -305,7 +326,7 @@ def forward(
         ql = None if qlayers is None else {
             part: {name: w[l] for name, w in qlayers[part].items()} for part in ("w", "s")}
         h = run(h, lp, cos, sin, attn_bias, config, cache_kv=kv,
-                cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql)
+                cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql, sp_mesh=sp_mesh)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(

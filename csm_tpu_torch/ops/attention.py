@@ -5,6 +5,12 @@ and the uncached forward, training included: the flash op carries its own
 backward kernels) go to the flash kernel when the stack runs on CUDA and the
 kernels take its shape and type; everything else, decode steps
 (``q_len == 1``) included, takes the plain path.
+
+Sequence-parallel passes (a mesh with ``seq > 1``) take
+:func:`csm_tpu_torch.ops.flash_attention.flash_attention_sp` when
+:func:`sp_flash_eligible`, on any device: on the CPU its kernels' plain
+versions run, so the host drives the route the card takes.  An ineligible
+shape takes the plain attention over the gathered K / V.
 """
 
 from __future__ import annotations
@@ -27,3 +33,19 @@ def flash_eligible(q_len: int, config: LlamaConfig, weight: torch.Tensor) -> boo
         and nq % nkv == 0
         and nq // nkv in GROUPS
     )
+
+
+def sp_flash_eligible(mesh, batch: int, q_len: int, num_q_heads: int, num_kv_heads: int,
+                      head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether a sequence-parallel pass of a global ``[batch, q_len]`` batch
+    on ``mesh`` takes :func:`~csm_tpu_torch.ops.flash_attention.
+    flash_attention_sp`: a ``seq`` axis above 1 that divides ``q_len``, a
+    ``data`` axis that divides ``batch``, at least two frames a shard, and a
+    dtype, head dim and GQA group the kernels take."""
+    if mesh is None or mesh.size("seq") == 1:
+        return False
+    if q_len % mesh.size("seq") or batch % mesh.size("data"):
+        return False
+    if num_q_heads % num_kv_heads or q_len // mesh.size("seq") < 2:
+        return False
+    return dtype in DTYPES and head_dim in HEAD_DIMS and num_q_heads // num_kv_heads in GROUPS

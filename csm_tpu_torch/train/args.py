@@ -4,9 +4,10 @@ with the same defaults: lr 5e-6, 3 epochs, per-device batch 1, grad-accum 8,
 logging every step, epoch-based saves rotated to 3 checkpoints, optional
 bf16.
 
-The port has no device mesh yet: ``mesh_data`` / ``mesh_model`` /
-``mesh_seq`` other than ``None`` / 1 raise ``NotImplementedError`` (the
-parallel slice is queued in ROADMAP.md)."""
+``mesh_data`` / ``mesh_seq`` lay the ranks of a ``torch.distributed`` job
+on a data x sequence mesh (:func:`csm_tpu_torch.parallel.make_mesh`);
+tensor parallelism is not ported yet, so ``mesh_model`` other than 1 raises
+``NotImplementedError`` (queued in ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -77,17 +78,19 @@ class TrainingArguments:
     max_seq_length: int = 2048  # hard cap / fallback frame bucket
     pad_to_multiple: int = 64  # length-bucket granularity (0 = always pad
     # to max_seq_length)
-    mesh_data: Optional[int] = None  # data-parallel axis size (not ported)
+    mesh_data: Optional[int] = None  # data-parallel axis size (None: the
+    # ranks left over by seq x model)
     mesh_model: int = 1  # tensor-parallel axis size (not ported)
-    mesh_seq: int = 1  # sequence-parallel axis size (not ported)
+    mesh_seq: int = 1  # sequence-parallel axis size
 
     def __post_init__(self):
-        for name in ("mesh_data", "mesh_model", "mesh_seq"):
-            if getattr(self, name) not in (None, 1):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)}: the port trains on one device; "
-                    "data, tensor and sequence parallelism are queued in ROADMAP.md"
-                )
+        if self.mesh_model not in (None, 1):
+            raise NotImplementedError(
+                f"mesh_model={self.mesh_model}: tensor parallelism is not ported yet "
+                "(queued in ROADMAP.md); mesh_data and mesh_seq are")
+        for name in ("mesh_data", "mesh_seq"):
+            if getattr(self, name) is not None and getattr(self, name) < 1:
+                raise ValueError(f"{name} must be at least 1; got {getattr(self, name)}")
 
 
 def parse_args(argv=None) -> Tuple[ModelArguments, DataArguments, TrainingArguments]:

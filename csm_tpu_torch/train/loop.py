@@ -16,8 +16,14 @@ Reference semantics (HF ``Trainer`` as ``train.py`` uses it):
 On the GPU the backbone's attention runs the flash kernels forward and
 backward (:mod:`csm_tpu_torch.ops.flash_attention`), and each backbone layer
 is checkpointed (``remat``).  The step updates the parameter tensors in
-place: the trainer trains the tensors it is given.  It runs on one device;
-the JAX package's mesh is not ported.
+place: the trainer trains the tensors it is given.
+
+With a mesh (:mod:`csm_tpu_torch.parallel`) every rank holds the full global
+batch and the replicated parameters; its forward computes its rows and
+frames and the gradient of its share of the global loss.  After the
+accumulation loop the gradients are summed over the ``data`` x ``seq``
+ranks in one flat bucket, then scaled, clipped and applied alike on every
+rank, so the replicas stay bitwise equal.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from csm_tpu_torch.config import CSMConfig
 from csm_tpu_torch.device import DeviceLike, resolve_device
 from csm_tpu_torch.models import csm
+from csm_tpu_torch.parallel.collectives import all_reduce_flat_
 
 logger = logging.getLogger(__name__)
 
@@ -159,6 +166,7 @@ def make_train_step(
     remat: bool = True,
     remat_policy: str = "auto",
     use_flash: bool = True,
+    mesh=None,
 ) -> Callable:
     """The train step ``step(state, base_params, batch) -> (state,
     metrics)`` over a ``[accum, B, S, 33]`` batch of tensors on the
@@ -174,6 +182,11 @@ def make_train_step(
 
     With ``lora_cfg={"alpha": a, "rank": r}``, ``state.params`` holds only
     the adapters and ``base_params`` the frozen base they are merged into.
+
+    ``mesh``: a :class:`~csm_tpu_torch.parallel.Mesh` of ``data`` x ``seq``
+    ranks.  Every rank passes the same global batch; its forward takes its
+    rows and frames, and the summed gradients are those of the one-device
+    step on the global batch.  ``"auto"`` then looks at this rank's rows.
     """
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(
@@ -192,11 +205,12 @@ def make_train_step(
                               params)
         policy = remat_policy
         if policy == "auto":
-            policy = "dots" if mb["input_ids"].shape[0] == 1 else "nothing"
+            rows = mb["input_ids"].shape[0] // (mesh.size("data") if mesh is not None else 1)
+            policy = "dots" if rows == 1 else "nothing"
         return csm.forward(
             params, config, mb["input_ids"], mb["attention_mask"], labels=mb["labels"],
             max_decoder_frames=max_decoder_frames, use_flash=use_flash, remat=remat,
-            remat_policy=policy,
+            remat_policy=policy, sp_mesh=mesh,
         )
 
     def train_step(state: TrainState, base_params, batch: Dict[str, torch.Tensor]):
@@ -215,8 +229,13 @@ def make_train_step(
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            p.grad.mul_(scale)
             grads.append(p.grad)
+        if mesh is not None:
+            # One collective over the flattened gradients, in leaf order:
+            # the same sequence of collectives on every rank.
+            all_reduce_flat_(grads, mesh.group("batch"))
+        for g in grads:
+            g.mul_(scale)
         grad_norm = optimizer.clip_(grads)
         for group in state.optimizer.param_groups:
             group["lr"] = optimizer.lr(state.step)
@@ -236,7 +255,7 @@ def _detached(tree: dict) -> dict:
 
 class CSMTrainer:
     """HF-Trainer-equivalent orchestration (reference ``CSMTrainer`` +
-    ``main``, ``train.py:303-512``) on one device.
+    ``main``, ``train.py:303-512``) on one device or a mesh of ranks.
 
     The dataset is any object with ``__len__`` / ``__getitem__`` returning
     ``{"input_ids", "attention_mask", "labels"}`` numpy arrays ``[S, 33]``;
@@ -245,6 +264,13 @@ class CSMTrainer:
     epoch-based save / eval cadence to steps (``train.py:414-467``).
     ``params`` are trained in place (the trainer's leaves share their
     storage).  ``device``: CUDA unless ``"cpu"`` is given.
+
+    ``mesh``: a :class:`~csm_tpu_torch.parallel.Mesh`; by default one is made
+    from ``args.mesh_data`` / ``args.mesh_seq`` when a process group is up
+    (:func:`~csm_tpu_torch.parallel.maybe_init_distributed`).  The global
+    batch is then ``per_device_train_batch_size * data``; every rank loads
+    it whole and trains its rows and frames; ``evaluate`` returns the
+    global loss on every rank; rank 0 writes checkpoints and the model.
     """
 
     def __init__(
@@ -256,6 +282,7 @@ class CSMTrainer:
         eval_dataset=None,
         data_collator=None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.config = config
         self.args = args
@@ -263,8 +290,12 @@ class CSMTrainer:
         self.eval_dataset = eval_dataset
         self.data_collator = data_collator
         self.device = resolve_device(device)
+        if mesh is None:
+            mesh = _mesh_from_args(args)
+        self.mesh = mesh
 
-        self.global_batch = args.per_device_train_batch_size
+        data = mesh.size("data") if mesh is not None else 1
+        self.global_batch = args.per_device_train_batch_size * data
         n_items = len(train_dataset)
         # ceil: the trailing partial accumulation window is trained on too
         # (_batches tops it up by repeating items), HF Trainer's no-drop-last.
@@ -324,6 +355,7 @@ class CSMTrainer:
             config, self.optimizer, self._max_dec, compute_dtype=compute_dtype,
             lora_cfg=lora_cfg, remat=bool(getattr(args, "gradient_checkpointing", True)),
             remat_policy=str(getattr(args, "gradient_checkpointing_policy", "auto")),
+            mesh=self.mesh,
         )
         self._metrics_log: list = []
 
@@ -462,7 +494,9 @@ class CSMTrainer:
 
         from csm_tpu_torch.train.reporting import make_reporter
 
-        reporter = make_reporter(getattr(args, "report_to", "none"),
+        # The ranks of a mesh log the same global metrics: rank 0 reports.
+        rank0 = self.mesh is None or self.mesh.rank == 0
+        reporter = make_reporter(getattr(args, "report_to", "none") if rank0 else "none",
                                  os.path.join(args.output_dir, "runs"))
         try:
             for step, batch in enumerate(self._prefetched(device_batches()),
@@ -504,7 +538,8 @@ class CSMTrainer:
             nonlocal bb_nll, dec_nll, bb_n, dec_n
             b = self._to_device(self.data_collator(buf))
             out = csm.forward(params, self.config, b["input_ids"], b["attention_mask"],
-                              labels=b["labels"], max_decoder_frames=self._max_dec)
+                              labels=b["labels"], max_decoder_frames=self._max_dec,
+                              sp_mesh=self.mesh)
             bl, bn, dl, dn = (float(x) for x in (out.backbone_loss, out.backbone_targets,
                                                  out.decoder_loss, out.decoder_targets))
             bb_nll += bl * bn
@@ -545,13 +580,37 @@ class CSMTrainer:
         ``config.json`` plus reference-layout ``model.safetensors``, which
         ``CSMModel.from_pretrained`` loads.  In LoRA mode the merged model is
         written, and the adapters beside it under ``adapters/``."""
-        from csm_tpu_torch.checkpoint import save_checkpoint, save_params_to_safetensors
+        from csm_tpu_torch.checkpoint import (
+            on_rank_zero,
+            save_checkpoint,
+            save_params_to_safetensors,
+        )
 
         out = output_dir or self.args.output_dir
-        os.makedirs(out, exist_ok=True)
-        self.config.to_json(os.path.join(out, "config.json"))
         if self.lora_rank > 0:
             save_checkpoint(os.path.join(out, "adapters"), 0,
                             {"lora": _detached(self.state.params)}, max_to_keep=1)
-        save_params_to_safetensors(os.path.join(out, "model.safetensors"), self.model_params())
+
+        def write():
+            os.makedirs(out, exist_ok=True)
+            self.config.to_json(os.path.join(out, "config.json"))
+            save_params_to_safetensors(os.path.join(out, "model.safetensors"),
+                                       self.model_params())
+
+        on_rank_zero(write)
         logger.info("model saved at %s", out)
+
+
+def _mesh_from_args(args):
+    """The mesh ``args.mesh_data`` / ``args.mesh_seq`` ask for over the
+    running process group; None for a single process (no group, no mesh
+    asked for)."""
+    import torch.distributed as dist
+
+    from csm_tpu_torch.parallel import make_mesh
+
+    data = getattr(args, "mesh_data", None)
+    seq = int(getattr(args, "mesh_seq", 1) or 1)
+    if not dist.is_initialized() and data in (None, 1) and seq == 1:
+        return None
+    return make_mesh(data=data, model=int(getattr(args, "mesh_model", 1) or 1), seq=seq)

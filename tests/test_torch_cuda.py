@@ -468,3 +468,104 @@ def test_train_step_with_the_kernels_matches_plain_attention(cuda, policy):
         assert np.isfinite(a) and abs(a - w) <= 1e-4 * abs(w), (k, a, w)
     for k, g in res[True][1].items():
         assert _rel_rms(g, res[False][1][k]) <= 1e-4, k
+
+
+# ---------------------------------------------------------------------------
+# q_offset (sequence parallelism)
+# ---------------------------------------------------------------------------
+
+
+def _poison_allocator(like: torch.Tensor) -> None:
+    """Leave NaN-filled blocks of ``like``'s size in the caching allocator,
+    so that an output the kernel fails to write shows up."""
+    for _ in range(4):
+        torch.full_like(like, float("nan"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_q_offset_kernels_match_the_unsharded_kernels(cuda, dtype, shards):
+    """Each query shard at ``q_offset = shard * S_local`` over the whole
+    K / V: K3's output on live rows and its lse, and K5a's dq, bitwise equal
+    to the unsharded launches' rows; K5b's dk / dv summed over the shards
+    within ``BWD_TOL`` of the unsharded ones, and exactly zero for the key
+    blocks after the shard's last row (written, not left as garbage)."""
+    gen = torch.Generator(device=cuda).manual_seed(shards)
+    B, S, nq, nkv, hd = 2, 256, 8, 2, 64
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    valid[1, :70] = 0
+    live = valid.cumsum(1) > 0
+    out, lse = flash_fwd(q, k, v, valid, True, with_lse=True)
+    dq, dk, dv = flash_bwd(q, k, v, valid, out, lse, do)
+    Sl = S // shards
+    dk_sum, dv_sum = torch.zeros_like(dk, dtype=torch.float32), torch.zeros_like(dv, dtype=torch.float32)
+    for s in range(shards):
+        sl = slice(s * Sl, (s + 1) * Sl)
+        o, l = flash_fwd(q[:, sl], k, v, valid, True, with_lse=True, q_offset=s * Sl)
+        assert torch.equal(o[live[:, sl]], out[:, sl][live[:, sl]]), s
+        assert torch.equal(l, lse[..., sl]), s
+        _poison_allocator(dk)
+        g = flash_bwd(q[:, sl], k, v, valid, o, l, do[:, sl], True, s * Sl)
+        torch.cuda.synchronize()
+        assert torch.equal(g[0], dq[:, sl]), s
+        first_unseen = -(-(s + 1) * Sl // 64) * 64  # key blocks past the shard's last row
+        assert (g[1][:, first_unseen:] == 0).all() and (g[2][:, first_unseen:] == 0).all(), s
+        dk_sum += g[1].float()
+        dv_sum += g[2].float()
+    assert _rel_rms(dk_sum, dk) <= BWD_TOL[dtype] and _rel_rms(dv_sum, dv) <= BWD_TOL[dtype]
+    # Control: shard 1 at offset 0 is another function.
+    o, _ = flash_fwd(q[:, Sl:2 * Sl], k, v, valid, True, with_lse=True)
+    assert not torch.equal(o, out[:, Sl:2 * Sl])
+
+
+def _sp_train_rank(seed):
+    """One rank of a data=1 x seq=2 mesh on the shared card: one train step
+    through flash_attention_sp, its metrics, launches, parameters and the
+    gradients the update used."""
+    from csm_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _config()
+    mesh = make_mesh(data=1, seq=2)
+    batch = _train_batch(cfg, 1, 2, 64, seed=seed)
+    opt = make_optimizer(1e-3, 4)
+    state = opt.init(CSMModel(cfg, seed=5, device="cuda").params)
+    step = make_train_step(cfg, opt, 24, remat=True, remat_policy="dots", mesh=mesh)
+    flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    state, m = step(state, None, batch)
+    torch.cuda.synchronize()
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                launches=(flash_fwd.launches, fa.flash_bwd_dq.launches,
+                          fa.flash_bwd_dkv.launches),
+                params={k: p.detach() for k, p in flatten(state.params).items()},
+                grads={k: p.grad for k, p in flatten(state.params).items()})
+
+
+def test_two_rank_gloo_step_on_one_card_matches_one_process(cuda):
+    """Two ranks on the same card over gloo (every collective on CUDA
+    tensors): the losses and grad norm of the one-process step on the same
+    global batch (rtol 1e-4: fp32, dk / dv summed across ranks), and each
+    parameter's gradient within 1e-4 relative RMS of its one-process
+    gradient (a fault confined to dK / dV leaves the losses as they are),
+    K3 / K5a / K5b once per layer on each rank, parameters bitwise equal
+    across ranks."""
+    from csm_tpu_torch.parallel.launch import launch
+
+    res = launch(_sp_train_rank, 2, 11, timeout=600.0)
+    cfg = _config()
+    opt = make_optimizer(1e-3, 4)
+    state = opt.init(CSMModel(cfg, seed=5, device=cuda).params)
+    step = make_train_step(cfg, opt, 24, remat=True, remat_policy="dots")
+    state, m = step(state, None, _train_batch(cfg, 1, 2, 64, seed=11))
+    L = cfg.backbone.num_hidden_layers
+    for rec in res:
+        assert rec["launches"] == (L, L, L)
+        for k, v in m.items():
+            assert abs(rec["metrics"][k] - float(v)) <= 1e-4 * abs(float(v)), k
+        for k, p in flatten(state.params).items():
+            g, r = torch.as_tensor(rec["grads"][k]).float(), p.grad.cpu().float()
+            assert (g - r).norm() <= 1e-4 * r.norm(), k
+    for k, p in res[0]["params"].items():
+        np.testing.assert_array_equal(p, res[1]["params"][k], err_msg=k)

@@ -27,7 +27,8 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 12, names
 assert {"csm_tpu_torch.serving", "csm_tpu_torch.codec.mimi", "csm_tpu_torch.codec.streaming",
-        "csm_tpu_torch.codec.convert"} <= set(names), names
+        "csm_tpu_torch.codec.convert", "csm_tpu_torch.parallel", "csm_tpu_torch.parallel.mesh",
+        "csm_tpu_torch.parallel.launch", "csm_tpu_torch.parallel.collectives"} <= set(names), names
 """
 
 
