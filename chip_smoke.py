@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. the card's name and power limit, then the kernels built from the five
    sources in ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started
-   together);
+   together); every instantiation of the bf16 K3 and K5b must hold HGMMA
+   (wgmma) instructions (``cuobjdump -sass``), the scalar kernels none;
 2. the flash prefill kernel held against its plain version at CSM-1B prefill
    shapes (B = 1 and 8 in bf16 and B = 8 in fp32, S = 256, T = 384, 32/8
    heads, hd 64, left padding);
@@ -159,6 +160,32 @@ def rel_rms(a, r) -> float:
 
 def share_differing(a, r) -> float:
     return (a.float() != r.float()).float().mean().item()
+
+
+# The bf16 kernels that must run on the tensor cores: (source, kernel), one
+# instantiation per head dim (16, 32, 64) and group (1, 2, 4).
+TENSOR_CORE_KERNELS = (("flash_fwd", "flash_fwd_wgmma_kernel"),
+                       ("flash_bwd", "flash_bwd_dkv_wgmma_kernel"))
+
+
+def tensor_core_check() -> dict:
+    """Phase 1: the bf16 K3 and K5b hold HGMMA (wgmma) instructions in every
+    instantiation of the built libraries (``cuobjdump -sass``); the scalar
+    kernels (fp32 K3 / K5b, K5a) hold none.  Returns the HGMMA count per
+    kernel instantiation."""
+    from csm_tpu_torch.ops import _build
+
+    sass = _build.sass_by_function([src for src, _ in TENSOR_CORE_KERNELS])
+    counts = {}
+    for _, name in TENSOR_CORE_KERNELS:
+        fns = {f: s.count("HGMMA") for f, s in sass.items() if name in f}
+        counts[name] = sorted(fns.values())
+        check(len(fns) == 9 and all(fns.values()),
+              f"{name}: HGMMA in {sum(1 for n in fns.values() if n)} of {len(fns)} instantiations")
+    scalar = [f for f, s in sass.items() if "wgmma" not in f and "HGMMA" in s]
+    check(not scalar, f"scalar kernels hold HGMMA: {scalar}")
+    log("tensor cores: HGMMA per instantiation " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -858,10 +885,15 @@ def end_to_end(model, results):
 # namespace at file scope, so the profiler names them
 # "[void ](anonymous namespace)::<name><...>(...)"; PyTorch's kernels (its
 # reduce_kernel among them) are named inside at::.
+# K3 and K5b are two kernels each, by operand type: the bf16 ones on the
+# tensor cores (every profiled path runs bf16), the fp32 ones on the CUDA
+# cores (the fp32 golden fixture and the fp32 checks of phases 2, 7 and 13).
 PORT_KERNELS = {
-    "flash_fwd": ("flash_fwd_kernel",),
+    "flash_fwd": ("flash_fwd_wgmma_kernel",),
+    "flash_fwd_f32": ("flash_fwd_kernel",),
     "flash_bwd_dq": ("flash_bwd_dq_kernel",),
-    "flash_bwd_dkv": ("flash_bwd_dkv_kernel",),
+    "flash_bwd_dkv": ("flash_bwd_dkv_wgmma_kernel",),
+    "flash_bwd_dkv_f32": ("flash_bwd_dkv_kernel",),
     "bb_decode": ("gemm_partial_kernel", "rope_attn_kernel", "rmsnorm_kernel",
                   "reduce_round_kernel", "reduce_residual_kernel", "reduce_swiglu_kernel"),
     "bb_decode_q": ("gemm_kernel", "init_kernel", "attn_kernel", "residual_kernel",
@@ -1172,10 +1204,11 @@ def serving_full_width(model, cfg, codec, bits: int) -> dict:
 # Limits of the backward kernels against the plain backward run on the
 # kernel's own forward output and log-sum-exp, per operand type: relative RMS
 # of dq / dk / dv.  Both round dS and P to the operand type at the same
-# points and sum each product in fp32 in key (or query) order with FMAs, as
-# cuBLAS does along K: the readings on an H100 are exactly 0 (PERF.md).  The
-# limits leave room for another summation order (a flipped bf16 rounding is
-# one step of a value); a wrong mask or head gives 0.1-1.
+# points and sum in fp32; the scalar kernels sum each product in key (or
+# query) order with FMAs, as cuBLAS does along K (readings exactly 0 on an
+# H100, PERF.md), while the bf16 K5b sums on the tensor cores in their own
+# order.  The limits leave room for another summation order (a flipped bf16
+# rounding is one step of a value); a wrong mask or head gives 0.1-1.
 FLASH_BWD_TOL = {"bfloat16": 2e-3, "float32": 1e-5}
 # max |lse - plain lse| on live rows: fp32 sums of bf16-exact products.
 FLASH_LSE_TOL = 1e-4
@@ -2164,6 +2197,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    hgmma = tensor_core_check()
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flash = {B: check_flash(B, gen) for B in (1, 8)}
@@ -2250,7 +2285,8 @@ def main() -> int:
              launches=counters["flash_fwd"] + tl["flash_fwd"] + s4["flash_fwd"] + sp["flash_fwd"],
              launches_by_path=dict(generate=counters["flash_fwd"], train=tl["flash_fwd"],
                                    serve=s4["flash_fwd"], train_sharded=sp["flash_fwd"]),
-             with_lse=dict(fb["fwd"], shape=fb["shape"]), q_offset=shard_readings("fwd")),
+             with_lse=dict(fb["fwd"], shape=fb["shape"]), q_offset=shard_readings("fwd"),
+             hgmma=hgmma["flash_fwd_wgmma_kernel"]),
         dict(name="flash_bwd_dq", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:303", r=dict(fb["dq"], shape=fb["shape"]),
              launches=tl["flash_bwd_dq"] + sp["flash_bwd_dq"],
@@ -2260,7 +2296,7 @@ def main() -> int:
              replaces="csm_tpu/ops/flash_attention.py:367", r=dict(fb["dkv"], shape=fb["shape"]),
              launches=tl["flash_bwd_dkv"] + sp["flash_bwd_dkv"],
              launches_by_path=dict(train=tl["flash_bwd_dkv"], train_sharded=sp["flash_bwd_dkv"]),
-             q_offset=shard_readings("dkv")),
+             q_offset=shard_readings("dkv"), hgmma=hgmma["flash_bwd_dkv_wgmma_kernel"]),
         dict(name="bb_decode", route="cuda", source="csm_tpu_torch/csrc/bb_decode.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1]),
         dict(name="bb_decode_q", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",

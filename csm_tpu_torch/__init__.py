@@ -24,4 +24,24 @@ Entry points run on CUDA unless ``device="cpu"`` is passed.
 from csm_tpu_torch.config import CSMConfig, LlamaConfig, RopeScalingConfig  # noqa: F401
 from csm_tpu_torch.model_api import CSMModel  # noqa: F401
 
-__all__ = ["CSMConfig", "LlamaConfig", "RopeScalingConfig", "CSMModel"]
+__version__ = "0.5.0"
+
+__all__ = [
+    "CSMConfig", "LlamaConfig", "RopeScalingConfig", "CSMModel", "CSMServer", "CSMStreamer",
+    "__version__",
+]
+
+_LAZY = {
+    "CSMServer": ("csm_tpu_torch.serving", "CSMServer"),
+    "CSMStreamer": ("csm_tpu_torch.serving", "CSMStreamer"),
+}
+
+
+def __getattr__(name):
+    # Lazy, as in the JAX package: the server pulls in the codec.
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'csm_tpu_torch' has no attribute {name!r}")

@@ -17,8 +17,8 @@
 //                                can see its key tile, over the g heads of
 //                                the GQA group, so the group sum is in-block),
 // all sums in f32, outputs in the operands' type.  No atomics: every output
-// element is summed by one thread in a fixed order, so two runs give
-// bitwise-equal gradients.
+// element is summed by one thread (or one wgmma accumulator register) in a
+// fixed order, so two runs give bitwise-equal gradients.
 //
 // q_offset (causal only) is the absolute position of query row 0, as in
 // flash_fwd.cu: a shard of sequence-parallel training passes seq_rank *
@@ -31,20 +31,38 @@
 // shard's last row visits none and is written as zeros, which the
 // all-gather's backward then sums into its owner's dk / dv.
 //
-// Design (simple first version): 256 threads per block, 64-row tiles staged
-// in shared memory as fp32 with a row stride of hd + 1 (column reads across
-// a warp fall in distinct banks); each thread holds a 4 x 4 block of the
-// 64 x 64 score tile (rows ty + 16a, keys tx + 16c) and a 4 x hd/16 block of
-// its 64 x hd accumulator.  K5a: one block per (64-row query tile, kv head,
-// batch row), walking the group's g heads in turn with that head's q / dO
-// tile resident.  K5b: one block per (64-key tile, kv head, batch row).
-// Scalar fp32 FMAs on the CUDA cores, no tensor cores, no TMA.
+// K5a, and K5b on fp32 operands (CUDA cores; wgmma has no fp32 operands and
+// TF32 would not hold the fp32 contract): 256 threads per block, 64-row
+// tiles staged in shared memory as fp32 with a row stride of hd + 1 (column
+// reads across a warp fall in distinct banks); each thread holds a 4 x 4
+// block of the 64 x 64 score tile (rows ty + 16a, keys tx + 16c) and a
+// 4 x hd/16 block of its 64 x hd accumulator.  K5a: one block per (64-row
+// query tile, kv head, batch row), walking the group's g heads in turn with
+// that head's q / dO tile resident.  K5b: one block per (64-key tile, kv
+// head, batch row).
+//
+// K5b on bf16 operands, flash_bwd_dkv_wgmma_kernel (tensor cores): one block
+// per (64-key tile, kv head, batch row), key tile 0 (the longest walk)
+// first; the keys are the M axis of every product.  K and V of the block
+// come once by TMA; a producer warp keeps a ring of 2 (q, dO) tiles of 64
+// rows in flight by TMA, with the rows' lse and delta, walking the group's
+// heads in turn from the first query tile that can see the keys.  One
+// consumer warpgroup forms S^T = K.Q^T and dP^T = V.dO^T by wgmma from
+// shared memory, P^T and dS^T on the accumulator registers, and adds
+// dV += bf16(P^T).dO and dK += bf16(dS^T).Q by wgmma with the A operand
+// from registers and dO, Q as the transposed (MN-major) operand; dK and dV
+// stay in fp32 registers and are written once.  One block per SM: the
+// consumer holds four 64 x 64 fp32 tiles (S^T, dP^T, dK, dV at hd 64) in
+// ~170 registers without spilling, which two blocks an SM would not leave
+// room for (at 128 registers it spilled ~0.5 KB a thread and ran 2.3x
+// slower, and handing the producer's registers over with setmaxnreg did
+// not lift ptxas's allocation: PERF.md).
 //
 // Bound on the H100: at CSM-1B training shapes (S = T = 2048, hd = 64, 32
 // query / 8 kv heads) the backward does 14 * hd * nq * (causal pairs) flops
 // (60 GFLOP a layer at B = 1) against ~34 MB of inputs and outputs, so it is
-// operation-bound (0.061 ms at 989 TFLOP/s bf16).  This version runs on the
-// CUDA cores, far from that: mma / wgmma tiles and TMA are later work.
+// operation-bound (0.061 ms at 989 TFLOP/s bf16), which only the tensor
+// cores reach: K5a's scalar version is far from it (later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,9 +71,12 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
 constexpr int TILE = 64;  // query rows of a query tile, keys of a key tile
 constexpr int NT = 256;   // threads per block, as 16 x 16
@@ -243,18 +264,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
   }
 }
 
-template <typename T, int HD, int G>
+template <int HD, int G>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
-                     const T* __restrict__ k,                // [B, T, nkv, HD]
-                     const T* __restrict__ v,                // [B, T, nkv, HD]
-                     const int32_t* __restrict__ key_valid,  // [B, T]
-                     const T* __restrict__ dout,             // [B, S, nkv*G, HD]
-                     const float* __restrict__ lse,          // [B, nkv*G, S]
-                     const float* __restrict__ delta,        // [B, nkv*G, S]
-                     T* __restrict__ dk,                     // [B, T, nkv, HD]
-                     T* __restrict__ dv,                     // [B, T, nkv, HD]
+flash_bwd_dkv_kernel(const float* __restrict__ q,              // [B, S, nkv*G, HD]
+                     const float* __restrict__ k,              // [B, T, nkv, HD]
+                     const float* __restrict__ v,              // [B, T, nkv, HD]
+                     const int32_t* __restrict__ key_valid,    // [B, T]
+                     const float* __restrict__ dout,           // [B, S, nkv*G, HD]
+                     const float* __restrict__ lse,            // [B, nkv*G, S]
+                     const float* __restrict__ delta,          // [B, nkv*G, S]
+                     float* __restrict__ dk,                   // [B, T, nkv, HD]
+                     float* __restrict__ dv,                   // [B, T, nkv, HD]
                      int S, int T_, int nkv, int causal, int q_offset, float scale) {
+  typedef float T;
   constexpr int LD = HD + 1;
   constexpr int DE = HD / 16;
   extern __shared__ float smem[];
@@ -355,6 +377,215 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5b for bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_KEYS = 64;      // keys per block: one consumer warpgroup
+constexpr int TC_BQ = 64;        // query rows per step of the walk
+constexpr int TC_STAGES = 2;     // Q / dO tiles in flight
+constexpr int TC_THREADS = 256;  // producer warpgroup + consumer warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory, byte offsets from a 1024-aligned base: the resident K and V
+// tiles, the ring of Q and dO tiles (each 64 swizzled rows, a multiple of
+// 1024 bytes), then per stage the rows' lse (times log2 e; +inf marks a dead
+// row or one past S, whose p is then exactly 0) and delta, and the barriers.
+template <int HD>
+struct DkvSmem {
+  static constexpr int ROW = 2 * HD;
+  static constexpr int TILE = 64 * ROW;
+  static constexpr int K = 0;
+  static constexpr int V = TILE;
+  static constexpr int Q = 2 * TILE;
+  static constexpr int DO = Q + TC_STAGES * TILE;
+  static constexpr int LSE = DO + TC_STAGES * TILE;
+  static constexpr int DELTA = LSE + TC_STAGES * TC_BQ * 4;
+  static constexpr int BAR = DELTA + TC_STAGES * TC_BQ * 4;
+  static constexpr int BYTES = BAR + (2 * TC_STAGES + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+};
+
+template <int HD, int G>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,   // q [B, S, nkv*G, HD]
+                           const __grid_constant__ CUtensorMap tk,   // k [B, T, nkv, HD]
+                           const __grid_constant__ CUtensorMap tv,   // v [B, T, nkv, HD]
+                           const __grid_constant__ CUtensorMap tdo,  // dout [B, S, nkv*G, HD]
+                           const int32_t* __restrict__ key_valid,    // [B, T]
+                           const float* __restrict__ lse,            // [B, nkv*G, S]
+                           const float* __restrict__ delta,          // [B, nkv*G, S]
+                           bf16* __restrict__ dk,                    // [B, T, nkv, HD]
+                           bf16* __restrict__ dv,                    // [B, T, nkv, HD]
+                           int S, int T_, int nkv, int causal, int q_offset, float scale) {
+  using L = DkvSmem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + TC_STAGES;
+  uint64_t* kvbar = empty + TC_STAGES;
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
+  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA);
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int j0 = blockIdx.z * TC_KEYS;  // key block 0, which walks every query tile, first
+  const int nq = nkv * G;
+  // The first local query tile that can see this key block (local row r
+  // sees key j when j <= q_offset + r); none when it is at or past S.
+  const int i_start = (causal && j0 > q_offset) ? ((j0 - q_offset) / TC_BQ) * TC_BQ : 0;
+  const int per_head = i_start < S ? (S - i_start + TC_BQ - 1) / TC_BQ : 0;
+  const int n_steps = G * per_head;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < TC_STAGES; ++i) {
+      mbar_init(&full[i], 32);  // the producer warp's lanes (one also expects the bytes)
+      mbar_init(&empty[i], 4);  // one lane of each consumer warp
+    }
+    mbar_init(kvbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0 && n_steps > 0) {
+        mbar_arrive_expect_tx(kvbar, 2 * TC_KEYS * HD * 2);
+        tma_load_4d(smem + L::K, &tk, kvbar, 0, kvh, j0, b);
+        tma_load_4d(smem + L::V, &tv, kvbar, 0, kvh, j0, b);
+      }
+      // Steps in a fixed order: the group's heads, each from i_start on.
+      for (int it = 0; it < n_steps; ++it) {
+        const int st = it % TC_STAGES;
+        mbar_wait(&empty[st], ((it / TC_STAGES) & 1) ^ 1);
+        const int hq = kvh * G + it / per_head;
+        const int i0 = i_start + (it % per_head) * TC_BQ;
+        for (int c = lane; c < TC_BQ; c += 32) {
+          const int row = i0 + c;
+          const size_t off = ((size_t)b * nq + hq) * S + row;
+          const float l = row < S ? lse[off] : NEG_INF;
+          lse_s[st * TC_BQ + c] = l <= NEG_INF / 2 ? INFINITY : l * LOG2E;
+          delta_s[st * TC_BQ + c] = row < S ? delta[off] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], 2 * TC_BQ * HD * 2);
+          tma_load_4d(smem + L::Q + st * L::TILE, &tq, &full[st], 0, hq, i0, b);
+          tma_load_4d(smem + L::DO + st * L::TILE, &tdo, &full[st], 0, hq, i0, b);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    const int tid = threadIdx.x - 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g8 = lane / 4, t4 = lane % 4;
+    // This thread's two keys (rows of the transposed tiles).
+    const int key0 = j0 + warp * 16 + g8, key1 = key0 + 8;
+    const bool ok0 = key0 < T_ && key_valid[(size_t)b * T_ + key0] != 0;
+    const bool ok1 = key1 < T_ && key_valid[(size_t)b * T_ + key1] != 0;
+    const float scale_log2 = scale * LOG2E;
+
+    float dk_acc[HD / 2], dv_acc[HD / 2];
+    float sacc[TC_BQ / 2], pacc[TC_BQ / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < TC_BQ / 2; ++i) sacc[i] = pacc[i] = 0.f;
+
+    const uint32_t k_addr = smem_u32(smem + L::K);
+    const uint32_t v_addr = smem_u32(smem + L::V);
+    if (n_steps > 0) mbar_wait(kvbar, 0);
+    for (int it = 0; it < n_steps; ++it) {
+      const int st = it % TC_STAGES;
+      mbar_wait(&full[st], (it / TC_STAGES) & 1);
+      const int i0 = i_start + (it % per_head) * TC_BQ;
+      const uint32_t q_addr = smem_u32(smem + L::Q + st * L::TILE);
+      const uint32_t do_addr = smem_u32(smem + L::DO + st * L::TILE);
+
+      // S^T = K Q^T and dP^T = V dO^T over hd in k16 slices.
+      fence_regs(sacc);
+      fence_regs(pacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss<TC_BQ>(sacc, desc_k<HD>(k_addr + kk * 32), desc_k<HD>(q_addr + kk * 32), kk);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss<TC_BQ>(pacc, desc_k<HD>(v_addr + kk * 32), desc_k<HD>(do_addr + kk * 32), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sacc);
+      fence_regs(pacc);
+
+      // p = exp(s scale - lse) (0 where masked or dead), dS = p (dP - delta)
+      // scale; both rounded to bf16 as the next products' A fragments.
+      const bool diag = causal && j0 + TC_KEYS - 1 > q_offset + i0;
+      const float* ls = lse_s + st * TC_BQ;
+      const float* dl = delta_s + st * TC_BQ;
+#pragma unroll
+      for (int n = 0; n < TC_BQ / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t4 + e;
+          const int pos = q_offset + i0 + c;
+          const float lc = ls[c], dc = dl[c];
+          const float p0 =
+              (ok0 && (!diag || key0 <= pos)) ? exp2f(sacc[4 * n + e] * scale_log2 - lc) : 0.f;
+          const float p1 =
+              (ok1 && (!diag || key1 <= pos)) ? exp2f(sacc[4 * n + 2 + e] * scale_log2 - lc) : 0.f;
+          pacc[4 * n + e] = p0 * (pacc[4 * n + e] - dc) * scale;
+          pacc[4 * n + 2 + e] = p1 * (pacc[4 * n + 2 + e] - dc) * scale;
+          sacc[4 * n + e] = p0;
+          sacc[4 * n + 2 + e] = p1;
+        }
+      }
+      uint32_t pf[TC_BQ / 16][4], sf[TC_BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TC_BQ / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pf[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+          sf[kk][r] = pack_bf16(pacc[8 * kk + 2 * r], pacc[8 * kk + 2 * r + 1]);
+        }
+      }
+
+      // dV += P~^T dO and dK += dS^T Q over the tile's query rows.
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_BQ / 16; ++kk)
+        mma_rs<HD>(dv_acc, pf[kk], desc_mn<HD>(do_addr + kk * 16 * L::ROW));
+#pragma unroll
+      for (int kk = 0; kk < TC_BQ / 16; ++kk)
+        mma_rs<HD>(dk_acc, sf[kk], desc_mn<HD>(q_addr + kk * 16 * L::ROW));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // Every key of the block is written: zeros where no row saw it.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = h ? key1 : key0;
+      if (key >= T_) continue;
+      const size_t off = (((size_t)b * T_ + key) * nkv + kvh) * HD;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * n + 2 * t4) =
+            pack_bf16(dk_acc[4 * n + 2 * h], dk_acc[4 * n + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * n + 2 * t4) =
+            pack_bf16(dv_acc[4 * n + 2 * h], dv_acc[4 * n + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *valid, *dout, *lse, *delta;
   void *o0, *o1;  // dq, or dk and dv
@@ -386,17 +617,36 @@ int launch_dq(const Args& a) {
 
 template <typename T, int HD, int G>
 int launch_dkv(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<T, HD, G>;
-  constexpr size_t smem = dkv_smem_bytes<HD>();
-  static const cudaError_t attr = allow_smem(kernel, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((a.T + TILE - 1) / TILE, a.nkv, a.B);
-  kernel<<<grid, NT, smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const int32_t*>(a.valid), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.S, a.T, a.nkv, a.causal, a.q_offset,
-      a.scale);
+  if constexpr (std::is_same<T, float>::value) {
+    auto kernel = flash_bwd_dkv_kernel<HD, G>;
+    constexpr size_t smem = dkv_smem_bytes<HD>();
+    static const cudaError_t attr = allow_smem(kernel, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid((a.T + TILE - 1) / TILE, a.nkv, a.B);
+    kernel<<<grid, NT, smem, a.st>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const int32_t*>(a.valid),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.o0),
+        static_cast<float*>(a.o1), a.S, a.T, a.nkv, a.causal, a.q_offset, a.scale);
+  } else {
+    auto kernel = flash_bwd_dkv_wgmma_kernel<HD, G>;
+    constexpr int smem = DkvSmem<HD>::ALLOC;
+    static const cudaError_t attr = allow_smem(kernel, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    const int nq = a.nkv * G;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!make_map(&tq, a.q, HD, nq, a.S, a.B, 1, TC_BQ) ||
+        !make_map(&tdo, a.dout, HD, nq, a.S, a.B, 1, TC_BQ) ||
+        !make_map(&tk, a.k, HD, a.nkv, a.T, a.B, 1, TC_KEYS) ||
+        !make_map(&tv, a.v, HD, a.nkv, a.T, a.B, 1, TC_KEYS))
+      return (int)cudaErrorInvalidValue;
+    dim3 grid(a.nkv, a.B, (a.T + TC_KEYS - 1) / TC_KEYS);
+    kernel<<<grid, TC_THREADS, smem, a.st>>>(
+        tq, tk, tv, tdo, static_cast<const int32_t*>(a.valid), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.o0), static_cast<bf16*>(a.o1),
+        a.S, a.T, a.nkv, a.causal, a.q_offset, a.scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -33,14 +33,14 @@ NVCC_FLAGS = [
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name),
+        shutil.which(name),
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the GPU host")
+    raise RuntimeError(f"{name} not found: the CUDA kernels are built on the GPU host")
 
 
 def _target(name: str) -> str:
@@ -63,7 +63,7 @@ def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     log = open(out[:-3] + ".log", "w")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, log, tmp, out, cmd
 
@@ -101,6 +101,23 @@ def ptxas_report(name: str) -> str:
     path = _target(name)[:-3] + ".log"
     with open(path) as f:
         return f.read()
+
+
+def sass_by_function(names: Iterable[str]) -> Dict[str, str]:
+    """``{mangled function name: its SASS}`` over the built libraries of the
+    given kernels (``cuobjdump -sass``), to check which instructions a
+    kernel was compiled to (``HGMMA`` for wgmma)."""
+    lines: Dict[str, List[str]] = {}
+    for path in build(names).values():
+        text = subprocess.run([_tool("cuobjdump"), "-sass", path], capture_output=True,
+                              text=True, check=True).stdout
+        body = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                body = lines.setdefault(line.split("Function :", 1)[1].strip(), [])
+            elif body is not None:
+                body.append(line)
+    return {fn: "\n".join(body) for fn, body in lines.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,6 +4,10 @@
 (K5a ``_flash_bwd_dq_kernel``, K5b ``_flash_bwd_dkv_kernel``), their plain
 PyTorch versions, and the differentiable op that joins them.
 
+On bf16 operands K3 and K5b run on the tensor cores (wgmma tiles fed by
+TMA); on fp32 operands, and K5a on both, the kernels run on the CUDA cores
+(wgmma has no fp32 operands).  The dispatch is by the operands' type.
+
 Layout ``[B, S, heads, head_dim]`` as in the JAX package.  Queries start at
 absolute position ``q_offset`` (0 for the prefill and one-device training;
 ``seq_rank * S_local`` for a shard of sequence-parallel training, whose keys
@@ -192,6 +196,12 @@ def _check_kernel_shapes(name: str, q, k, v, key_valid, *same_as_q) -> None:
         )
 
 
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as TMA reads the bf16 kernels' tiles."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -215,7 +225,7 @@ def flash_fwd(
     _check_kernel_shapes("flash_attention", q, k, v, key_valid)
     B, S, nq, hd = q.shape
     T, nkv = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _contiguous(q), _contiguous(k), _contiguous(v)
     valid = key_valid.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B, nq, S), dtype=torch.float32, device=q.device) if with_lse else None
@@ -240,9 +250,9 @@ def _bwd_args(q, k, v, key_valid, dout, lse, delta):
     T, nkv = k.shape[1], k.shape[2]
     if lse.shape != (B, nq, S) or delta.shape != (B, nq, S):
         raise ValueError(f"flash_bwd: lse / delta must be [B, nq, S] = {(B, nq, S)}")
-    tensors = [t.contiguous() for t in (q, k, v)]
+    tensors = [_contiguous(t) for t in (q, k, v)]
     tensors.append(key_valid.to(device=q.device, dtype=torch.int32).contiguous())
-    tensors.append(dout.contiguous())
+    tensors.append(_contiguous(dout))
     tensors += [t.to(torch.float32).contiguous() for t in (lse, delta)]
     return tensors, (B, S, T, nq, nkv, hd, int(q.dtype == torch.float32))
 

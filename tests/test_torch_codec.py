@@ -270,3 +270,25 @@ def test_codec_wrapper_round_trip_shapes():
     np.testing.assert_array_equal(
         codes, np.asarray(jmimi.MimiCodec(jcfg, jp, num_codebooks=5).encode(
             _wave(1920 * 3, seed=3, B=1)[0, 0])))
+
+
+def test_rvq_decode_clamps_codes_past_the_codebook():
+    """CSM's audio vocabulary has 2051 ids and Mimi 2048 centroids: the
+    port's ``rvq_decode`` gives a code past the codebook the last centroid
+    (codes 2048 and 2050 decode as 2047), where the JAX ``_rvq_decode``'s
+    ``jnp.take`` fills NaN.  On codes clipped to 2047 the two agree."""
+    rng = np.random.default_rng(5)
+    Q, V, D = 3, 2048, 8
+    books = rng.standard_normal((Q, V, D)).astype(np.float32)
+    codes = np.broadcast_to(np.array([0, 2047, 2048, 2050]), (2, Q, 4)).copy()
+    codes[1, 1] = [5, 2047, 2049, 2050]
+    got = mimi.rvq_decode(torch.from_numpy(books), torch.from_numpy(codes)).numpy()
+    assert got.shape == (2, 4, D) and np.isfinite(got).all()
+    for t in (2, 3):
+        np.testing.assert_array_equal(got[:, t], got[:, 1])
+    clipped = np.minimum(codes, V - 1)
+    want = np.asarray(jmimi._rvq_decode(jax.numpy.asarray(books), jax.numpy.asarray(clipped)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        mimi.rvq_decode(torch.from_numpy(books), torch.from_numpy(clipped)).numpy(), want,
+        rtol=1e-6, atol=1e-6)

@@ -569,3 +569,73 @@ def test_two_rank_gloo_step_on_one_card_matches_one_process(cuda):
             assert (g - r).norm() <= 1e-4 * r.norm(), k
     for k, p in res[0]["params"].items():
         np.testing.assert_array_equal(p, res[1]["params"][k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernels (K3, K5b): ragged shapes, determinism, HGMMA
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 16])
+def test_tensor_core_kernels_on_ragged_shapes(cuda, hd, causal):
+    """S = 200 queries against T = 333 keys (neither a multiple of a tile),
+    B = 3 rows left-padded by 0 / 37 / 150 keys, bf16, 8 query / 2 kv heads:
+    K3's output on live rows within the prefill limit, its lse within 1e-5
+    relative (dead rows exactly NEG_INF), and dq / dk / dv within
+    ``BWD_TOL`` of the plain backward, bitwise equal over two runs."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + causal)
+    B, S, T, nq, nkv = 3, 200, 333, 8, 2
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=cuda).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, T, nkv, hd), generator=gen, device=cuda).to(dt) for _ in range(2))
+    valid = torch.ones((B, T), dtype=torch.int32, device=cuda)
+    for b, pad in enumerate((0, 37, 150)):
+        valid[b, :pad] = 0
+    live = valid[:, :S].cumsum(1) > 0 if causal else torch.ones((B, S), dtype=torch.bool,
+                                                                  device=cuda)
+    out, lse = flash_fwd(q, k, v, valid, causal, with_lse=True)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, valid, causal, return_lse=True)
+    err = (out.float() - ref_out.float()).abs()[live].max().item()
+    assert err <= 2e-2, err
+    lse_err = (lse - ref_lse).abs().transpose(1, 2)[live].max().item()
+    assert lse_err <= 1e-5 * max(1.0, ref_lse.abs().max().item()), lse_err
+    assert (lse.transpose(1, 2)[~live] == fa.NEG_INF).all()
+    got = flash_bwd(q, k, v, valid, out, lse, do, causal)
+    again = flash_bwd(q, k, v, valid, out, lse, do, causal)
+    want = flash_attention_bwd_reference(q, k, v, valid, out, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, a, w, a2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(a, a2), name
+        assert _rel_rms(a, w) <= BWD_TOL[dt], (name, _rel_rms(a, w))
+
+
+def test_tensor_core_forward_is_deterministic(cuda):
+    """Two launches of the bf16 K3 with LSE on the same inputs are bitwise
+    equal (no atomics, a fixed order of every sum)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, S, nq, nkv, hd = 2, 384, 8, 2, 64
+    q = torch.randn((B, S, nq, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    valid[1, :40] = 0
+    first = flash_fwd(q, k, v, valid, True, with_lse=True)
+    second = flash_fwd(q, k, v, valid, True, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_bf16_kernels_run_on_the_tensor_cores(cuda):
+    """The bf16 K3 and K5b in the built libraries hold HGMMA (wgmma)
+    instructions; the fp32 kernels and K5a hold none."""
+    from csm_tpu_torch.ops import _build
+
+    sass = _build.sass_by_function(["flash_fwd", "flash_bwd"])
+    for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+        fns = {f: s for f, s in sass.items() if name in f}
+        assert len(fns) == 9, (name, sorted(fns))  # hd 16 / 32 / 64 x groups 1 / 2 / 4
+        assert all("HGMMA" in s for s in fns.values()), name
+    for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        fns = {f: s for f, s in sass.items() if f"{name}I" in f}
+        assert fns and not any("HGMMA" in s for s in fns.values()), name

@@ -45,6 +45,49 @@ def test_import_loads_no_jax_and_nothing_of_csm_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+_EXPORTS = r"""
+import sys
+import csm_tpu_torch
+from csm_tpu_torch import CSMServer, CSMStreamer, __version__
+from csm_tpu_torch.serving import CSMServer as S, CSMStreamer as St
+assert CSMServer is S and CSMStreamer is St, (CSMServer, CSMStreamer)
+assert isinstance(__version__, str) and __version__, __version__
+assert set(csm_tpu_torch.__all__) >= {"CSMModel", "CSMServer", "CSMStreamer", "__version__"}
+try:
+    csm_tpu_torch.NoSuchName
+except AttributeError:
+    pass
+else:
+    raise AssertionError("an unknown attribute resolved")
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "csm_tpu") or m.startswith(("jax.", "flax.", "csm_tpu.")))
+assert not bad, bad
+print(__version__)
+"""
+
+
+def test_top_level_exports_resolve_without_jax():
+    """In a fresh interpreter: ``CSMServer``, ``CSMStreamer`` and
+    ``__version__`` resolve on the package, as on ``csm_tpu``, and resolving
+    them loads no jax, flax or csm_tpu module."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run(
+        [sys.executable, "-c", _EXPORTS], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_version_matches_the_jax_package():
+    import csm_tpu
+    import csm_tpu_torch
+
+    assert csm_tpu_torch.__version__ == csm_tpu.__version__
+    for name in ("CSMServer", "CSMStreamer", "__version__"):
+        assert hasattr(csm_tpu_torch, name) and hasattr(csm_tpu, name), name
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
