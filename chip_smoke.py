@@ -7,8 +7,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. the card's name and power limit, then the kernels built from the five
    sources in ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started
-   together); every instantiation of the bf16 K3 and K5b must hold HGMMA
-   (wgmma) instructions (``cuobjdump -sass``), the scalar kernels none;
+   together); every instantiation of the bf16 K3, K5a and K5b must hold
+   HGMMA (wgmma) instructions (``cuobjdump -sass``), the scalar kernels
+   none, and K2 HMMA (mma.sync);
 2. the flash prefill kernel held against its plain version at CSM-1B prefill
    shapes (B = 1 and 8 in bf16 and B = 8 in fp32, S = 256, T = 384, 32/8
    heads, hd 64, left padding);
@@ -26,7 +27,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    decoder width (B = 1, 8 and 32; bf16 and int8 head; greedy and sampled at
    temperature 0.8, top-k 50), teacher-forced on the plain version's tokens:
    logit gates, every draw bit-equal to the plain sampler on the kernel's own
-   logits, and the f32-operand control;
+   logits, and the f32-operand control; K2's grid barriers per frame (its
+   own count, at most 652) and its per-stage times from its trace;
 6. end to end on a random CSM-1B model in bf16 (seed 0): a
    ``save_pretrained`` -> ``from_pretrained`` round trip, then greedy
    ``generate`` from a 64-frame prompt for 16 frames: plain at B = 1 and 8,
@@ -165,26 +167,36 @@ def share_differing(a, r) -> float:
 # The bf16 kernels that must run on the tensor cores: (source, kernel), one
 # instantiation per head dim (16, 32, 64) and group (1, 2, 4).
 TENSOR_CORE_KERNELS = (("flash_fwd", "flash_fwd_wgmma_kernel"),
+                       ("flash_bwd", "flash_bwd_dq_wgmma_kernel"),
                        ("flash_bwd", "flash_bwd_dkv_wgmma_kernel"))
+# K2's products run on mma.sync (HMMA).
+MMA_KERNELS = (("fused_decoder", "fused_decoder_kernel"),)
 
 
 def tensor_core_check() -> dict:
-    """Phase 1: the bf16 K3 and K5b hold HGMMA (wgmma) instructions in every
-    instantiation of the built libraries (``cuobjdump -sass``); the scalar
-    kernels (fp32 K3 / K5b, K5a) hold none.  Returns the HGMMA count per
-    kernel instantiation."""
+    """Phase 1: the bf16 K3, K5a and K5b hold HGMMA (wgmma) instructions in
+    every instantiation of the built libraries (``cuobjdump -sass``); the
+    scalar kernels (fp32 K3 / K5a / K5b) hold none; K2 holds HMMA
+    (mma.sync).  Returns the HGMMA (HMMA for K2) count per kernel
+    instantiation."""
     from csm_tpu_torch.ops import _build
 
-    sass = _build.sass_by_function([src for src, _ in TENSOR_CORE_KERNELS])
+    sass = _build.sass_by_function(sorted({src for src, _ in TENSOR_CORE_KERNELS + MMA_KERNELS}))
     counts = {}
     for _, name in TENSOR_CORE_KERNELS:
         fns = {f: s.count("HGMMA") for f, s in sass.items() if name in f}
         counts[name] = sorted(fns.values())
         check(len(fns) == 9 and all(fns.values()),
               f"{name}: HGMMA in {sum(1 for n in fns.values() if n)} of {len(fns)} instantiations")
-    scalar = [f for f, s in sass.items() if "wgmma" not in f and "HGMMA" in s]
+    for _, name in MMA_KERNELS:
+        fns = {f: s.count("HMMA") for f, s in sass.items() if name in f}
+        counts[name] = sorted(fns.values())
+        check(len(fns) == 1 and all(fns.values()), f"{name}: HMMA counts {counts[name]}")
+    scalar = [f for f, s in sass.items()
+              if "wgmma" not in f and "fused_decoder" not in f and "HGMMA" in s]
     check(not scalar, f"scalar kernels hold HGMMA: {scalar}")
-    log("tensor cores: HGMMA per instantiation " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    log("tensor cores: HGMMA (HMMA for K2) per instantiation " +
+        ", ".join(f"{k} {v}" for k, v in counts.items()))
     return counts
 
 
@@ -587,6 +599,9 @@ def check_bbq(qsb, config, B: int, gen):
 # kernel's own logits, bit for bit.
 FUSED_FULL_RMS_TOL = 2e-2
 FUSED_LAYER_LIMITS = {"share": 0.3, "rel_rms": 3e-3}
+# Grid barriers a frame, the kernel's own count: 1 + 31 passes x 21 at most
+# (the design before took 1,055).
+FUSED_MAX_BARRIERS = 652
 FUSED_TEMP, FUSED_TOPK = 0.8, 50
 
 
@@ -636,6 +651,9 @@ def check_fused(qdecs, params, config, B: int, gen):
             mode = "greedy" if greedy else "sampled"
             tag = f"fused B={B} head{head_bits} {mode}"
             run = _fused_run(qdec, config, x0, c0, gum, temp, topk, greedy)
+            barriers = fd.last_grid_barriers()
+            check(barriers <= FUSED_MAX_BARRIERS,
+                  f"{tag}: {barriers} grid barriers a frame > {FUSED_MAX_BARRIERS}")
             samples, lg, draws = run["kernel"]
             ref = run["plain"]
             full = {side: _logit_readings(run[side][1], ref[1], Va)
@@ -663,13 +681,15 @@ def check_fused(qdecs, params, config, B: int, gen):
                 f"{layer['f64']['share']:.3e} / {layer['f64']['rel_rms']:.3e}, control "
                 f"{layer['control']['share']:.3e} / {layer['control']['rel_rms']:.3e}, limits "
                 f"{FUSED_LAYER_LIMITS['share']} / {FUSED_LAYER_LIMITS['rel_rms']}; draws == "
-                f"sampler on own logits {draws_equal}; draws == plain draws {vs_plain:.4f}")
+                f"sampler on own logits {draws_equal}; draws == plain draws {vs_plain:.4f}; "
+                f"{barriers} grid barriers a frame")
             for k, lim in FUSED_LAYER_LIMITS.items():
                 check(layer["kernel"][k] <= lim, f"{tag}: one-layer logits {k} {layer['kernel'][k]:.3e} > {lim}")
             check(any(layer["control"][k] > lim for k, lim in FUSED_LAYER_LIMITS.items()),
                   f"{tag}: the one-layer limits do not see the f32-operand control")
             out[f"head{head_bits}_{mode}"] = dict(
                 full=full, one_layer=layer, draws_equal=draws_equal, draws_vs_plain=vs_plain,
+                grid_barriers=barriers,
                 max_abs=(lg[..., :Va] - ref[1][..., :Va]).abs().max().item())
     timing = {}
     for head_bits, qdec in qdecs.items():
@@ -678,6 +698,9 @@ def check_fused(qdecs, params, config, B: int, gen):
         timing[head_bits] = dict(ms=ms, bound=fused_bound(qdec, config, B))
         log(f"fused B={B} head{head_bits}: kernel {ms:.4f} ms per frame, bound "
             f"{timing[head_bits]['bound'][0]:.4f} ms ({timing[head_bits]['bound'][1]})")
+    stages = fused_stage_us(qdecs[16], config, (x0, c0, gum_s, temp, topk, False))
+    log(f"fused B={B} head16: stage us per pass (kernel trace, mean over passes 1..{N - 3}): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
     args = (qdecs[16], config, x0, c0, gum_s, temp, topk, False, torch.full((B, N), -1, device=dev))
     plain_ms = cuda_ms(lambda: fd.decode_codebooks_reference(*args), iters=2, warmup=1)
     log(f"fused B={B}: plain version {plain_ms:.2f} ms per frame (bf16 head, sampled)")
@@ -685,7 +708,36 @@ def check_fused(qdecs, params, config, B: int, gen):
     return dict(err=max(v["max_abs"] for v in out.values()), ms=t16["ms"], plain_ms=plain_ms,
                 library_ms=None, bound_ms=t16["bound"][0], bound_by=t16["bound"][1],
                 ms_head8=timing[8]["ms"], bound_ms_head8=timing[8]["bound"][0],
+                stage_us_per_pass=stages,
                 shape=f"B={B} CSM-1B decoder, bf16 head, sampled", gates=out)
+
+
+FUSED_STAGES = ("qkv", "attention", "o_proj", "gate_up", "down")
+
+
+def fused_stage_us(qdec, config, args) -> dict:
+    """One frame with the kernel's trace (block 0's clock as it leaves each
+    grid barrier): µs per pass of each stage kind, summed over the layers,
+    and of the head with the draws, averaged over the passes of one new
+    row (1 .. N-3; pass 0 takes two rows, the last has no closing barrier)."""
+    import torch
+
+    from csm_tpu_torch.ops import fused_decoder as fd
+
+    N, L = config.audio_num_codebooks, config.decoder.num_hidden_layers
+    per = 5 * L + 1
+    stamps = torch.zeros(((N - 1) * per + 1,), dtype=torch.int64, device="cuda")
+    fd.fused_decode_codebooks(qdec, config, *args, stage_ns=stamps)
+    d = stamps.diff().double().cpu() / 1e3  # d[n - 1]: the stage ending at barrier n
+    out = {k: 0.0 for k in (*FUSED_STAGES, "head_draw")}
+    passes = range(1, N - 2)
+    for i in passes:
+        for j in range(per):
+            key = "head_draw" if j == 5 * L else FUSED_STAGES[j % 5]
+            out[key] += d[1 + per * i + j].item() / len(passes)
+    out["pass_total"] = sum(out.values())
+    out["c0_draw"] = d[0].item()
+    return out
 
 
 def fused_bound(qdec, config, B: int):
@@ -885,13 +937,14 @@ def end_to_end(model, results):
 # namespace at file scope, so the profiler names them
 # "[void ](anonymous namespace)::<name><...>(...)"; PyTorch's kernels (its
 # reduce_kernel among them) are named inside at::.
-# K3 and K5b are two kernels each, by operand type: the bf16 ones on the
-# tensor cores (every profiled path runs bf16), the fp32 ones on the CUDA
+# K3, K5a and K5b are two kernels each, by operand type: the bf16 ones on
+# the tensor cores (every profiled path runs bf16), the fp32 ones on the CUDA
 # cores (the fp32 golden fixture and the fp32 checks of phases 2, 7 and 13).
 PORT_KERNELS = {
     "flash_fwd": ("flash_fwd_wgmma_kernel",),
     "flash_fwd_f32": ("flash_fwd_kernel",),
-    "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+    "flash_bwd_dq": ("flash_bwd_dq_wgmma_kernel",),
+    "flash_bwd_dq_f32": ("flash_bwd_dq_kernel",),
     "flash_bwd_dkv": ("flash_bwd_dkv_wgmma_kernel",),
     "flash_bwd_dkv_f32": ("flash_bwd_dkv_kernel",),
     "bb_decode": ("gemm_partial_kernel", "rope_attn_kernel", "rmsnorm_kernel",
@@ -1204,10 +1257,9 @@ def serving_full_width(model, cfg, codec, bits: int) -> dict:
 # Limits of the backward kernels against the plain backward run on the
 # kernel's own forward output and log-sum-exp, per operand type: relative RMS
 # of dq / dk / dv.  Both round dS and P to the operand type at the same
-# points and sum in fp32; the scalar kernels sum each product in key (or
-# query) order with FMAs, as cuBLAS does along K (readings exactly 0 on an
-# H100, PERF.md), while the bf16 K5b sums on the tensor cores in their own
-# order.  The limits leave room for another summation order (a flipped bf16
+# points and sum in fp32; the fp32 kernels sum each product in key (or
+# query) order with FMAs, as cuBLAS does along K, while the bf16 K5a and K5b
+# sum on the tensor cores in their own order.  The limits leave room for another summation order (a flipped bf16
 # rounding is one step of a value); a wrong mask or head gives 0.1-1.
 FLASH_BWD_TOL = {"bfloat16": 2e-3, "float32": 1e-5}
 # max |lse - plain lse| on live rows: fp32 sums of bf16-exact products.
@@ -2291,7 +2343,7 @@ def main() -> int:
              replaces="csm_tpu/ops/flash_attention.py:303", r=dict(fb["dq"], shape=fb["shape"]),
              launches=tl["flash_bwd_dq"] + sp["flash_bwd_dq"],
              launches_by_path=dict(train=tl["flash_bwd_dq"], train_sharded=sp["flash_bwd_dq"]),
-             q_offset=shard_readings("dq")),
+             q_offset=shard_readings("dq"), hgmma=hgmma["flash_bwd_dq_wgmma_kernel"]),
         dict(name="flash_bwd_dkv", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:367", r=dict(fb["dkv"], shape=fb["shape"]),
              launches=tl["flash_bwd_dkv"] + sp["flash_bwd_dkv"],
@@ -2312,7 +2364,9 @@ def main() -> int:
              replaces="csm_tpu/ops/fused_decoder.py:566", r=fused[1],
              launches=counters["fused_decoder"] + s4["fused_decoder"],
              launches_by_path=dict(generate=counters["fused_decoder"],
-                                   serve=s4["fused_decoder"])),
+                                   serve=s4["fused_decoder"]),
+             grid_barriers=fused[1]["gates"]["head16_sampled"]["grid_barriers"],
+             hmma=hgmma["fused_decoder_kernel"]),
     ]
     kernels = []
     for row in rows:

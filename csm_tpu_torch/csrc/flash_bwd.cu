@@ -31,15 +31,29 @@
 // shard's last row visits none and is written as zeros, which the
 // all-gather's backward then sums into its owner's dk / dv.
 //
-// K5a, and K5b on fp32 operands (CUDA cores; wgmma has no fp32 operands and
-// TF32 would not hold the fp32 contract): 256 threads per block, 64-row
-// tiles staged in shared memory as fp32 with a row stride of hd + 1 (column
-// reads across a warp fall in distinct banks); each thread holds a 4 x 4
-// block of the 64 x 64 score tile (rows ty + 16a, keys tx + 16c) and a
+// On fp32 operands both kernels run on the CUDA cores (wgmma has no fp32
+// operands and TF32 would not hold the fp32 contract): 256 threads per block,
+// 64-row tiles staged in shared memory as fp32 with a row stride of hd + 1
+// (column reads across a warp fall in distinct banks); each thread holds a
+// 4 x 4 block of the 64 x 64 score tile (rows ty + 16a, keys tx + 16c) and a
 // 4 x hd/16 block of its 64 x hd accumulator.  K5a: one block per (64-row
 // query tile, kv head, batch row), walking the group's g heads in turn with
 // that head's q / dO tile resident.  K5b: one block per (64-key tile, kv
 // head, batch row).
+//
+// K5a on bf16 operands, flash_bwd_dq_wgmma_kernel (tensor cores): one block
+// per (128 folded query rows, kv head, batch row), the GQA group folded into
+// the rows as K3 folds it (row r = position r / G, head r % G: a TMA box
+// {hd, G, 128 / G} over q and dO), so each K / V tile comes in once for all
+// G heads; causal blocks run latest first, so the longest walks start
+// first.  A producer warp keeps a ring of 2 K / V tiles of 64 keys in flight
+// by TMA with their key_valid bits, from key 0 in fixed steps up to the
+// block's last row.  Two consumer warpgroups own 64 folded rows each: S =
+// Q.K^T and dP = dO.V^T by wgmma from shared memory, p and dS on the
+// accumulator registers (dS rounded to bf16 in registers), and dQ += dS.K by
+// wgmma with dS from registers and K as the transposed (MN-major) operand;
+// dQ stays in fp32 registers (S, dP and dQ: three 64 x 64 fp32 tiles at hd
+// 64) and is written once.
 //
 // K5b on bf16 operands, flash_bwd_dkv_wgmma_kernel (tensor cores): one block
 // per (64-key tile, kv head, batch row), key tile 0 (the longest walk)
@@ -62,7 +76,7 @@
 // query / 8 kv heads) the backward does 14 * hd * nq * (causal pairs) flops
 // (60 GFLOP a layer at B = 1) against ~34 MB of inputs and outputs, so it is
 // operation-bound (0.061 ms at 989 TFLOP/s bf16), which only the tensor
-// cores reach: K5a's scalar version is far from it (later work).
+// cores reach.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,17 +179,18 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * TILE * (HD + 1) + 2 * TILE * LDS + 2 * TILE) + sizeof(int) * TILE;
 }
 
-template <typename T, int HD, int G>
+template <int HD, int G>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q,                // [B, S, nkv*G, HD]
-                    const T* __restrict__ k,                // [B, T, nkv, HD]
-                    const T* __restrict__ v,                // [B, T, nkv, HD]
-                    const int32_t* __restrict__ key_valid,  // [B, T]
-                    const T* __restrict__ dout,             // [B, S, nkv*G, HD]
-                    const float* __restrict__ lse,          // [B, nkv*G, S]
-                    const float* __restrict__ delta,        // [B, nkv*G, S]
-                    T* __restrict__ dq,                     // [B, S, nkv*G, HD]
+flash_bwd_dq_kernel(const float* __restrict__ q,              // [B, S, nkv*G, HD]
+                    const float* __restrict__ k,              // [B, T, nkv, HD]
+                    const float* __restrict__ v,              // [B, T, nkv, HD]
+                    const int32_t* __restrict__ key_valid,    // [B, T]
+                    const float* __restrict__ dout,           // [B, S, nkv*G, HD]
+                    const float* __restrict__ lse,            // [B, nkv*G, S]
+                    const float* __restrict__ delta,          // [B, nkv*G, S]
+                    float* __restrict__ dq,                   // [B, S, nkv*G, HD]
                     int S, int T_, int nkv, int causal, int q_offset, float scale) {
+  typedef float T;
   constexpr int LD = HD + 1;
   constexpr int DE = HD / 16;
   extern __shared__ float smem[];
@@ -586,6 +601,213 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,   // q [B, S,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5a for bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_ROWS = 128;     // folded query rows per block: 2 consumer warpgroups x 64
+constexpr int DQ_BK = 64;        // keys per K/V tile
+constexpr int DQ_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int DQ_MASK_WORDS = DQ_BK / 32;
+
+// Shared memory, byte offsets from a 1024-aligned base: the block's Q and dO
+// tiles (128 folded rows each), the ring of K and V tiles, then the key
+// bits of each stage and the barriers.
+template <int HD>
+struct DqSmem {
+  static constexpr int ROW = 2 * HD;
+  static constexpr int Q = 0;
+  static constexpr int DO = DQ_ROWS * ROW;
+  static constexpr int KV_TILE = DQ_BK * ROW;
+  static constexpr int K = 2 * DQ_ROWS * ROW;
+  static constexpr int V = K + TC_STAGES * KV_TILE;
+  static constexpr int MASK = V + TC_STAGES * KV_TILE;
+  static constexpr int BAR = MASK + TC_STAGES * DQ_MASK_WORDS * 4;
+  static constexpr int BYTES = BAR + (2 * TC_STAGES + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+};
+
+template <int HD, int G>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,   // q [B, S, nkv*G, HD]
+                          const __grid_constant__ CUtensorMap tk,   // k [B, T, nkv, HD]
+                          const __grid_constant__ CUtensorMap tv,   // v [B, T, nkv, HD]
+                          const __grid_constant__ CUtensorMap tdo,  // dout [B, S, nkv*G, HD]
+                          const int32_t* __restrict__ key_valid,    // [B, T]
+                          const float* __restrict__ lse,            // [B, nkv*G, S]
+                          const float* __restrict__ delta,          // [B, nkv*G, S]
+                          bf16* __restrict__ dq,                    // [B, S, nkv*G, HD]
+                          int S, int T_, int nkv, int causal, int q_offset, float scale) {
+  using L = DqSmem<HD>;
+  constexpr int P = DQ_ROWS / G;  // query positions per block
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + TC_STAGES;
+  uint64_t* qbar = empty + TC_STAGES;
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem + L::MASK);
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qb = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // longest walks first
+  const int s0 = qb * P;
+  // Keys any row of this block may see: causality stops at its last row.
+  const int kend = causal ? min(T_, q_offset + min(S, s0 + P)) : T_;
+  const int n_tiles = (kend + DQ_BK - 1) / DQ_BK;
+  const int nq = nkv * G;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < TC_STAGES; ++i) {
+      mbar_init(&full[i], 32);  // the producer warp's lanes (one also expects the bytes)
+      mbar_init(&empty[i], 8);  // one lane of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(qbar, 2 * DQ_ROWS * HD * 2);
+        tma_load_4d(smem + L::Q, &tq, qbar, 0, kvh * G, s0, b);
+        tma_load_4d(smem + L::DO, &tdo, qbar, 0, kvh * G, s0, b);
+      }
+      // Key tiles from key 0 in steps of DQ_BK, as every launch walks them.
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % TC_STAGES;
+        mbar_wait(&empty[st], ((it / TC_STAGES) & 1) ^ 1);
+        const int j0 = it * DQ_BK;
+#pragma unroll
+        for (int w = 0; w < DQ_MASK_WORDS; ++w) {
+          const int j = j0 + 32 * w + lane;
+          const uint32_t bits =
+              __ballot_sync(0xffffffffu, j < kend && key_valid[(size_t)b * T_ + j] != 0);
+          if (lane == 0) mask[st * DQ_MASK_WORDS + w] = bits;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], 2 * DQ_BK * HD * 2);
+          tma_load_4d(smem + L::K + st * L::KV_TILE, &tk, &full[st], 0, kvh, j0, b);
+          tma_load_4d(smem + L::V + st * L::KV_TILE, &tv, &full[st], 0, kvh, j0, b);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g8 = lane / 4, t4 = lane % 4;
+    // This thread's two folded rows: local positions, heads, absolute
+    // positions, lse (times log2 e; +inf for a dead row or one past S, whose
+    // p is then exactly 0) and delta.
+    const int r0 = cw * 64 + warp * 16 + g8, r1 = r0 + 8;
+    const int sr0 = s0 + r0 / G, sr1 = s0 + r1 / G;
+    const int hq0 = kvh * G + r0 % G, hq1 = kvh * G + r1 % G;
+    const int pos0 = q_offset + sr0, pos1 = q_offset + sr1;
+    const int first_pos = q_offset + s0;
+    float ls0 = INFINITY, ls1 = INFINITY, dl0 = 0.f, dl1 = 0.f;
+    if (sr0 < S) {
+      const size_t o = ((size_t)b * nq + hq0) * S + sr0;
+      const float l = lse[o];
+      ls0 = l <= NEG_INF / 2 ? INFINITY : l * LOG2E;
+      dl0 = delta[o];
+    }
+    if (sr1 < S) {
+      const size_t o = ((size_t)b * nq + hq1) * S + sr1;
+      const float l = lse[o];
+      ls1 = l <= NEG_INF / 2 ? INFINITY : l * LOG2E;
+      dl1 = delta[o];
+    }
+    const float scale_log2 = scale * LOG2E;
+
+    float sacc[DQ_BK / 2], pacc[DQ_BK / 2], dq_acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i) sacc[i] = pacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+
+    const uint32_t q_addr = smem_u32(smem + L::Q) + cw * 64 * L::ROW;
+    const uint32_t do_addr = smem_u32(smem + L::DO) + cw * 64 * L::ROW;
+    mbar_wait(qbar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % TC_STAGES;
+      mbar_wait(&full[st], (it / TC_STAGES) & 1);
+      const uint32_t k_addr = smem_u32(smem + L::K + st * L::KV_TILE);
+      const uint32_t v_addr = smem_u32(smem + L::V + st * L::KV_TILE);
+
+      // S = Q K^T and dP = dO V^T over hd in k16 slices.
+      fence_regs(sacc);
+      fence_regs(pacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss<DQ_BK>(sacc, desc_k<HD>(q_addr + kk * 32), desc_k<HD>(k_addr + kk * 32), kk);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss<DQ_BK>(pacc, desc_k<HD>(do_addr + kk * 32), desc_k<HD>(v_addr + kk * 32), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sacc);
+      fence_regs(pacc);
+
+      // p = exp(s scale - lse), 0 where masked or dead; dS = p (dP - delta)
+      // scale, rounded to bf16 as the A fragments of dQ += dS K.
+      const int j0 = it * DQ_BK;
+      const bool diag = causal && j0 + DQ_BK - 1 > first_pos;
+      uint32_t bits[DQ_MASK_WORDS];
+#pragma unroll
+      for (int w = 0; w < DQ_MASK_WORDS; ++w) bits[w] = mask[st * DQ_MASK_WORDS + w];
+#pragma unroll
+      for (int n = 0; n < DQ_BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t4 + e;
+          const bool ok = (bits[c / 32] >> (c % 32)) & 1u;
+          const int j = j0 + c;
+          const float p0 =
+              (ok && (!diag || j <= pos0)) ? exp2f(sacc[4 * n + e] * scale_log2 - ls0) : 0.f;
+          const float p1 =
+              (ok && (!diag || j <= pos1)) ? exp2f(sacc[4 * n + 2 + e] * scale_log2 - ls1) : 0.f;
+          pacc[4 * n + e] = p0 * (pacc[4 * n + e] - dl0) * scale;
+          pacc[4 * n + 2 + e] = p1 * (pacc[4 * n + 2 + e] - dl1) * scale;
+        }
+      }
+      uint32_t sf[DQ_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sf[kk][r] = pack_bf16(pacc[8 * kk + 2 * r], pacc[8 * kk + 2 * r + 1]);
+
+      // dQ += dS K over the tile's keys, K as the transposed (MN-major) operand.
+      fence_regs(dq_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+        mma_rs<HD>(dq_acc, sf[kk], desc_mn<HD>(k_addr + kk * 16 * L::ROW));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = h ? sr1 : sr0;
+      if (s >= S) continue;
+      bf16* op = dq + (((size_t)b * S + s) * nq + (h ? hq1 : hq0)) * HD;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t4) =
+            pack_bf16(dq_acc[4 * n + 2 * h], dq_acc[4 * n + 2 * h + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *valid, *dout, *lse, *delta;
   void *o0, *o1;  // dq, or dk and dv
@@ -602,16 +824,37 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <typename T, int HD, int G>
 int launch_dq(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<T, HD, G>;
-  constexpr size_t smem = dq_smem_bytes<HD>();
-  static const cudaError_t attr = allow_smem(kernel, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((a.S + TILE - 1) / TILE, a.nkv, a.B);
-  kernel<<<grid, NT, smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const int32_t*>(a.valid), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.o0), a.S, a.T, a.nkv, a.causal, a.q_offset, a.scale);
+  if constexpr (std::is_same<T, float>::value) {
+    auto kernel = flash_bwd_dq_kernel<HD, G>;
+    constexpr size_t smem = dq_smem_bytes<HD>();
+    static const cudaError_t attr = allow_smem(kernel, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid((a.S + TILE - 1) / TILE, a.nkv, a.B);
+    kernel<<<grid, NT, smem, a.st>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const int32_t*>(a.valid),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.o0), a.S, a.T, a.nkv,
+        a.causal, a.q_offset, a.scale);
+  } else {
+    auto kernel = flash_bwd_dq_wgmma_kernel<HD, G>;
+    constexpr int smem = DqSmem<HD>::ALLOC;
+    static const cudaError_t attr = allow_smem(kernel, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    const int nq = a.nkv * G;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!make_map(&tq, a.q, HD, nq, a.S, a.B, G, DQ_ROWS / G) ||
+        !make_map(&tdo, a.dout, HD, nq, a.S, a.B, G, DQ_ROWS / G) ||
+        !make_map(&tk, a.k, HD, a.nkv, a.T, a.B, 1, DQ_BK) ||
+        !make_map(&tv, a.v, HD, a.nkv, a.T, a.B, 1, DQ_BK))
+      return (int)cudaErrorInvalidValue;
+    const int P = DQ_ROWS / G;
+    dim3 grid(a.nkv, a.B, (a.S + P - 1) / P);
+    kernel<<<grid, DQ_THREADS, smem, a.st>>>(
+        tq, tk, tv, tdo, static_cast<const int32_t*>(a.valid), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.o0), a.S, a.T, a.nkv, a.causal,
+        a.q_offset, a.scale);
+  }
   return (int)cudaGetLastError();
 }
 

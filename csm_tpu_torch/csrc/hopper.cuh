@@ -1,5 +1,5 @@
 // Hopper building blocks of the port's tensor-core attention kernels
-// (flash_fwd.cu, K3; flash_bwd.cu, K5b): mbarriers, TMA tile loads, wgmma
+// (flash_fwd.cu, K3; flash_bwd.cu, K5a and K5b): mbarriers, TMA tile loads, wgmma
 // products with their shared-memory descriptors, and the host-side encoding
 // of TMA tensor maps.
 //

@@ -1,9 +1,10 @@
-// Building blocks shared by the port's W8A16 / W4A16 kernels (fused_decoder.cu,
-// the codebook loop; bb_decode_q.cu, the int8 and int4 backbone steps).
+// Building blocks of the port's W8A16 / W4A16 backbone steps (bb_decode_q.cu,
+// the int8 and int4 tiers); fused_decoder.cu takes its small helpers
+// (bf16r, warp_sum, warp_max, NT, NWARP, NEG_INF).
 //
-// The weight products of both are skinny: y[R, N] = x[R, K] W[K, N] with
-// R <= 64 rows of bf16-valued activations against int8 or row-packed int4
-// weights (or a bf16 / f32 head), far below the card's ops-per-byte balance,
+// The weight products are skinny: y[R, N] = x[R, K] W[K, N] with R <= 64
+// rows of bf16-valued activations against int8 or row-packed int4 weights,
+// far below the card's ops-per-byte balance,
 // so they are bound by the bytes of W.  gemm_item streams one work item, 128
 // columns by KC rows of W, into registers once with 4-column loads (a warp
 // reads 128 contiguous int8 columns of a row in one transaction; every thread
@@ -97,28 +98,6 @@ template <> struct Wv<Int4> {
       hi[c] = (float)((signed char)b >> 4);
     }
   }
-};
-template <> struct Wv<bf16> {
-  typedef bf16 S;
-  typedef uint2 T;
-  static constexpr int MAXRW = 16;
-  static constexpr int ROWS = 1;
-  __device__ static T load(const bf16* p) { return __ldg(reinterpret_cast<const uint2*>(p)); }
-  __device__ static T zero() { return make_uint2(0u, 0u); }
-  __device__ static void unpack(T v, float f[4]) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-  }
-};
-template <> struct Wv<float> {
-  typedef float S;
-  typedef float4 T;
-  static constexpr int MAXRW = 8;
-  static constexpr int ROWS = 1;
-  __device__ static T load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static void unpack(T v, float f[4]) { f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w; }
 };
 
 // Rows of W per K split for a [K, N] product at R activation rows: as deep
@@ -279,12 +258,6 @@ __device__ __forceinline__ float swiglu_f32(const float* part, int KS, int R, in
   const float g = split_sum(part, KS, R, 2 * F, r, n) * __ldg(s + n) * rsr;
   const float u = split_sum(part, KS, R, 2 * F, r, F + n) * __ldg(s + F + n) * rsr;
   return g * (1.f / (1.f + expf(-g))) * u;
-}
-
-// The same, rounded to bf16: the next product's operand.
-__device__ __forceinline__ float swiglu(const float* part, int KS, int R, int F, int r, int n,
-                                        const float* __restrict__ s, float rsr) {
-  return bf16r(swiglu_f32(part, KS, R, F, r, n, s, rsr));
 }
 
 }  // namespace w8a16

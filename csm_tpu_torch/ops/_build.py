@@ -120,12 +120,17 @@ def sass_by_function(names: Iterable[str]) -> Dict[str, str]:
     return {fn: "\n".join(body) for fn, body in lines.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    ``signatures`` maps each ``extern "C"`` function to ``(argtypes,
+    restype)``, set once, when the library is loaded."""
     lib = _loaded.get(name)
     if lib is None:
         path = build([name])[name]
         lib = ctypes.CDLL(path)
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
 

@@ -257,16 +257,16 @@ def bb_decode_step_reference(
 _F = ctypes.c_void_p
 
 
+# The C functions of csrc/bb_decode.cu: (argtypes, restype).
+SIGNATURES = {
+    "bb_decode_step": ([_F] * 24 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F],
+                       ctypes.c_int),
+    "bb_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 def _lib():
-    lib = _build.load(KERNEL)
-    fn = lib.bb_decode_step
-    fn.argtypes = (
-        [_F] * 24 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F]
-    )
-    fn.restype = ctypes.c_int
-    lib.bb_error_string.argtypes = [ctypes.c_int]
-    lib.bb_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(KERNEL, SIGNATURES)
 
 
 def bb_decode_step(
@@ -445,18 +445,18 @@ def bb_decode_step_q_reference(
     return nh, logits[:, :config.audio_vocab_size], torch.stack(new_k), torch.stack(new_v)
 
 
+_Q_TAIL = [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F]
+# The C functions of csrc/bb_decode_q.cu: (argtypes, restype).
+SIGNATURES_Q = {
+    "bb_decode_q_step": ([_F] * 27 + _Q_TAIL, ctypes.c_int),
+    "bb_decode_q4_step": ([_F] * 31 + _Q_TAIL, ctypes.c_int),
+    "bbq_part_floats": ([ctypes.c_int] * 8, ctypes.c_longlong),
+    "bbq_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 def _lib_q():
-    lib = _build.load(KERNEL_Q)
-    tail = [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F]
-    lib.bb_decode_q_step.argtypes = [_F] * 27 + tail
-    lib.bb_decode_q_step.restype = ctypes.c_int
-    lib.bb_decode_q4_step.argtypes = [_F] * 31 + tail
-    lib.bb_decode_q4_step.restype = ctypes.c_int
-    lib.bbq_part_floats.argtypes = [ctypes.c_int] * 8
-    lib.bbq_part_floats.restype = ctypes.c_longlong
-    lib.bbq_error_string.argtypes = [ctypes.c_int]
-    lib.bbq_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(KERNEL_Q, SIGNATURES_Q)
 
 
 def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str):

@@ -159,24 +159,25 @@ def _check_offset(causal: bool, q_offset: int) -> None:
                          f"{q_offset} with causal={causal}")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C functions of csrc/flash_fwd.cu and csrc/flash_bwd.cu: (argtypes, restype).
+FWD_SIGNATURES = {
+    "flash_fwd": ([_P] * 6 + [_I] * 9 + [_P], _I),
+    "flash_error_string": ([_I], ctypes.c_char_p),
+}
+BWD_SIGNATURES = {
+    "flash_bwd_dq": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "flash_bwd_dkv": ([_P] * 9 + [_I] * 9 + [_P], _I),
+    "flash_bwd_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 def _fwd_lib():
-    lib = _build.load(KERNEL)
-    fn = lib.flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.flash_error_string.argtypes = [ctypes.c_int]
-    lib.flash_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(KERNEL, FWD_SIGNATURES)
 
 
 def _bwd_lib():
-    lib = _build.load(BWD_KERNEL)
-    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = ctypes.c_int
-    lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.flash_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(BWD_KERNEL, BWD_SIGNATURES)
 
 
 def _check_kernel_shapes(name: str, q, k, v, key_valid, *same_as_q) -> None:

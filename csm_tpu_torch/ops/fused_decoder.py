@@ -6,8 +6,9 @@ One call samples all codebooks of a frame for ``B <= 32`` streams: c0 from
 the backbone's logits, then the decoder prefill and one decoder pass per
 codebook, with int8 per-output-channel weights (W8A16, RMSNorm weights folded
 into the products), the head applied per codebook (bf16, or int8 with
-``head_bits=8``), top-k by bisection over bf16 bit patterns and Gumbel-max
-draws from a given noise table.  A ``forced`` prefix pins tokens (the
+``head_bits=8``), top-k over bf16 bit patterns (the plain version by
+bisection, the kernel by a radix select that finds the same k-th value) and
+Gumbel-max draws from a given noise table.  A ``forced`` prefix pins tokens (the
 speculative tier's re-drafts).  The plain version repeats the kernel's
 arithmetic op for op in PyTorch; it is what a CPU tensor gets.
 """
@@ -286,19 +287,48 @@ def decode_codebooks_reference(
 # The kernel's wrapper
 # ---------------------------------------------------------------------------
 
-_F = ctypes.c_void_p
+_F, _I = ctypes.c_void_p, ctypes.c_int
+# The C functions of csrc/fused_decoder.cu: (argtypes, restype).
+SIGNATURES = {
+    "fused_decode": ([_F] * 23 + [ctypes.c_longlong] + [_F] * 4 + [_I] * 14 + [ctypes.c_float, _F],
+                     _I),
+    "fd_scratch_floats": ([_I] * 7, ctypes.c_longlong),
+    "fd_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def _lib():
-    lib = _build.load(KERNEL)
-    lib.fused_decode.argtypes = [_F] * 29 + [ctypes.c_longlong] + [_F] * 3 + [ctypes.c_int] * 14 + [
-        ctypes.c_float, _F]
-    lib.fused_decode.restype = ctypes.c_int
-    lib.fd_part_floats.argtypes = [ctypes.c_int] * 9
-    lib.fd_part_floats.restype = ctypes.c_longlong
-    lib.fd_error_string.argtypes = [ctypes.c_int]
-    lib.fd_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(KERNEL, SIGNATURES)
+
+
+# Scratch kept across calls of the same shapes on the same device: the f32
+# buffer the kernel lays out (residual, attention output, split sums), the
+# bf16 K/V scratch and the 4 barrier words.  The kernel writes every value
+# before reading it and re-arms the barrier words itself (bar[0] at each
+# barrier, bar[2] before the first), so they are zeroed once, here.  Calls
+# on one device are ordered by its stream, which the scratch assumes.
+_SCRATCH: dict = {}
+_last_bar: list = []
+
+
+def _scratch(lib, dev, B, D, L, nq, nkv, hd, Fi, Va_pad, NP):
+    key = (dev, B, D, L, nq, nkv, hd, Fi, Va_pad, NP)
+    sc = _SCRATCH.get(key)
+    if sc is None:
+        n = lib.fd_scratch_floats(B, D, nq, nkv, hd, Fi, Va_pad)
+        kc = torch.empty((L, B, nkv, NP, hd), dtype=torch.bfloat16, device=dev)
+        sc = (torch.empty((n,), dtype=torch.float32, device=dev), kc, torch.empty_like(kc),
+              torch.zeros((4,), dtype=torch.int32, device=dev))
+        _SCRATCH[key] = sc
+    return sc
+
+
+def last_grid_barriers() -> int:
+    """Grid barriers the last kernel launch took (its own count, bar[3];
+    reads the card, so it waits for the launch)."""
+    if not _last_bar:
+        raise RuntimeError("fused_decode_codebooks has not launched its kernel")
+    return int(_last_bar[0][3].item())
 
 
 def fused_decode_codebooks(
@@ -312,12 +342,16 @@ def fused_decode_codebooks(
     greedy: bool,
     forced: Optional[torch.Tensor] = None,
     return_logits: bool = False,
+    stage_ns: Optional[torch.Tensor] = None,
 ):
     """All codebooks of one frame, ``[B, N]`` int64.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (and raise on what it does
     not take).  ``temperature [B]``, ``topk [B]`` in [1, Va]; ``forced [B, N]``
     pins tokens (-1 draws).  ``return_logits`` also returns the logits
-    ``[N, B, Va_pad]`` and the draws before forcing ``[B, N]``.
+    ``[N, B, Va_pad]`` and the draws before forcing ``[B, N]``.  ``stage_ns``
+    (an int64 CUDA tensor of at least ``last_grid_barriers() + 1`` elements)
+    receives the kernel's trace: block 0's clock in ns at its start and as
+    it leaves each grid barrier.
     ``fused_decode_codebooks.launches`` counts kernel launches."""
     B, dev = x0.shape[0], x0.device
     N = config.audio_num_codebooks
@@ -351,23 +385,16 @@ def fused_decode_codebooks(
     gum = c(gumbel, f32)
     w, s = qdec["w"], qdec["s"]
     hs = qdec.get("head_scale", torch.ones((1,), dtype=f32, device=dev))
+    if stage_ns is not None and (stage_ns.device != dev or stage_ns.dtype != torch.int64
+                                 or stage_ns.numel() < (N - 1) * (5 * L + 1) + 1):
+        raise ValueError("stage_ns: an int64 tensor on the kernel's device, one element more "
+                         "than the kernel's grid barriers")
     lib = _lib()
     NP = N
-    part_floats = lib.fd_part_floats(B, D, nq, nkv, hd, Fi, Va_pad, NP, head_kind)
-    if part_floats < 0:
-        raise RuntimeError(f"fused_decode_codebooks: {lib.fd_error_string(-part_floats).decode()}")
-    R = 2 * B
+    scratch, kc, vc, bar = _scratch(lib, dev, B, D, L, nq, nkv, hd, Fi, Va_pad, NP)
     samples = torch.empty((B, N), dtype=i32, device=dev)
     out_logits = torch.empty((N, B, Va_pad), dtype=f32, device=dev) if return_logits else None
     out_draws = torch.empty((B, N), dtype=i32, device=dev) if return_logits else None
-    scratch = dict(
-        h=(R, D), xb=(R, D), rs=(R,), attn=(R, nq * hd), gated=(R, Fi), hx=(B, D),
-        part=(part_floats,),
-    )
-    sc = {n: torch.empty(shp, dtype=f32, device=dev) for n, shp in scratch.items()}
-    kc = torch.empty((L, B, nkv, NP, hd), dtype=torch.bfloat16, device=dev)
-    vc = torch.empty_like(kc)
-    bar = torch.zeros((2,), dtype=i32, device=dev)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -378,14 +405,14 @@ def fused_decode_codebooks(
         s["wqkv"].data_ptr(), s["wo"].data_ptr(), s["w_gu"].data_ptr(), s["w_down"].data_ptr(),
         qdec["cos"].data_ptr(), qdec["sin"].data_ptr(), head.data_ptr(), hs.data_ptr(),
         gum.data_ptr(), emb.data_ptr(), samples.data_ptr(), ptr(out_logits), ptr(out_draws),
-        sc["h"].data_ptr(), sc["xb"].data_ptr(), sc["rs"].data_ptr(), sc["attn"].data_ptr(),
-        sc["gated"].data_ptr(), sc["hx"].data_ptr(), sc["part"].data_ptr(), part_floats,
-        kc.data_ptr(), vc.data_ptr(), bar.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), kc.data_ptr(), vc.data_ptr(), bar.data_ptr(),
+        ptr(stage_ns),
         B, N, Va, Va_pad, D, L, nq, nkv, hd, Fi, NP, int(greedy), head_kind,
         int(emb.dtype == torch.bfloat16), float(dcfg.rms_norm_eps), _build.stream_handle(dev),
     )
     if rc != 0:
         raise RuntimeError(f"fused_decode_codebooks launch failed: {lib.fd_error_string(rc).decode()}")
+    _last_bar[:] = [bar]
     fused_decode_codebooks.launches += 1
     samples = samples.long()
     if return_logits:

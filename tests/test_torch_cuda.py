@@ -627,15 +627,160 @@ def test_tensor_core_forward_is_deterministic(cuda):
 
 
 def test_bf16_kernels_run_on_the_tensor_cores(cuda):
-    """The bf16 K3 and K5b in the built libraries hold HGMMA (wgmma)
-    instructions; the fp32 kernels and K5a hold none."""
+    """The bf16 K3, K5a and K5b in the built libraries hold HGMMA (wgmma)
+    instructions in all 9 instantiations; the fp32 kernels hold none; K2
+    holds HMMA (mma.sync)."""
     from csm_tpu_torch.ops import _build
 
-    sass = _build.sass_by_function(["flash_fwd", "flash_bwd"])
-    for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+    sass = _build.sass_by_function(["flash_fwd", "flash_bwd", "fused_decoder"])
+    for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel"):
         fns = {f: s for f, s in sass.items() if name in f}
         assert len(fns) == 9, (name, sorted(fns))  # hd 16 / 32 / 64 x groups 1 / 2 / 4
         assert all("HGMMA" in s for s in fns.values()), name
     for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
         fns = {f: s for f, s in sass.items() if f"{name}I" in f}
         assert fns and not any("HGMMA" in s for s in fns.values()), name
+    fused = [s for f, s in sass.items() if "fused_decoder_kernel" in f]
+    assert len(fused) == 1 and "HMMA" in fused[0]
+
+
+# ---------------------------------------------------------------------------
+# K5a on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("nq,nkv", [(4, 4), (4, 2), (8, 2)])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_bf16_dq_kernel_on_ragged_shapes(cuda, hd, nq, nkv, causal):
+    """The bf16 K5a at every head dim and group, S = 200 queries against T =
+    333 keys, rows left-padded by 0 / 37 / 150 keys: dq within ``BWD_TOL``
+    of the plain backward, bitwise equal over two launches, exactly zero on
+    dead rows."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + 10 * nq + nkv + causal)
+    B, S, T = 3, 200, 333
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=cuda).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, T, nkv, hd), generator=gen, device=cuda).to(dt) for _ in range(2))
+    valid = torch.ones((B, T), dtype=torch.int32, device=cuda)
+    for b, pad in enumerate((0, 37, 150)):
+        valid[b, :pad] = 0
+    out, lse = flash_fwd(q, k, v, valid, causal, with_lse=True)
+    delta = fa._delta(out, do)
+    before = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, valid, do, lse, delta, causal)
+    again = fa.flash_bwd_dq(q, k, v, valid, do, lse, delta, causal)
+    want = flash_attention_bwd_reference(q, k, v, valid, out, lse, do, causal)[0]
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == before + 2
+    assert dq.dtype == dt and torch.equal(dq, again)
+    assert _rel_rms(dq, want) <= BWD_TOL[dt], _rel_rms(dq, want)
+    if causal:
+        live = valid[:, :S].cumsum(1) > 0
+        assert (dq[~live] == 0).all()
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("hd,nq,nkv", [(16, 4, 4), (64, 8, 2), (32, 4, 1)])
+def test_bf16_dq_shards_equal_the_unsharded_launch(cuda, hd, nq, nkv, shards):
+    """K5a on query shards at ``q_offset = shard * S_local`` over the whole
+    K / V: every shard's dq rows bitwise equal to the unsharded launch's."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + shards)
+    B, S = 2, 384
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=cuda).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=cuda).to(dt) for _ in range(2))
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    valid[1, :90] = 0
+    out, lse = flash_fwd(q, k, v, valid, True, with_lse=True)
+    delta = fa._delta(out, do)
+    dq = fa.flash_bwd_dq(q, k, v, valid, do, lse, delta)
+    Sl = S // shards
+    for s in range(shards):
+        sl = slice(s * Sl, (s + 1) * Sl)
+        _poison_allocator(dq)
+        got = fa.flash_bwd_dq(q[:, sl], k, v, valid, do[:, sl], lse[..., sl], delta[..., sl],
+                              True, s * Sl)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dq[:, sl]), s
+
+
+# ---------------------------------------------------------------------------
+# K2: the fused codebook loop, redesigned
+# ---------------------------------------------------------------------------
+
+# The phase-5 limits of chip_smoke.py: full-depth logits relative RMS, and
+# per decoder layer alone the share of logits differing and their relative
+# RMS.
+FUSED_FULL_RMS_TOL = 2e-2
+FUSED_LAYER_LIMITS = {"share": 0.3, "rel_rms": 3e-3}
+# 1 + 31 passes x 21 barriers, the redesign's budget (the old kernel: 1,055).
+FUSED_MAX_BARRIERS = 652
+
+
+def _fused_bundle(model, cfg, head: str) -> dict:
+    """The kernel's bundle with a bf16, int8 or f32 head."""
+    params = model.params
+    if head == "f32":
+        params = {**params, "audio_head": params["audio_head"].float()}
+    return fd.prepare_fused_decoder(params, cfg, head_bits=8 if head == "int8" else 16)
+
+
+def _decoder_layer(qdec: dict, l: int) -> dict:
+    return {**qdec, "w": {k: v[l:l + 1] for k, v in qdec["w"].items()},
+            "s": {k: v[l:l + 1] for k, v in qdec["s"].items()}}
+
+
+def _fused_logits(qdec, cfg, args, B):
+    """Kernel and plain logits, teacher-forced on the plain version's tokens."""
+    N = cfg.audio_num_codebooks
+    forced = fd.decode_codebooks_reference(qdec, cfg, *args,
+                                           torch.full((B, N), -1, device="cuda"))[0]
+    ref = fd.decode_codebooks_reference(qdec, cfg, *args, forced)
+    got = fd.fused_decode_codebooks(qdec, cfg, *args, forced=forced, return_logits=True)
+    return forced, got, ref
+
+
+@pytest.mark.parametrize("head", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+def test_fused_kernel_holds_the_phase5_limits(cuda, B, head):
+    """Greedy and sampled, teacher-forced: full-depth logits within
+    ``FUSED_FULL_RMS_TOL``, each layer alone within ``FUSED_LAYER_LIMITS``,
+    forced tokens passed through, every draw bit-equal to the plain sampler
+    on the kernel's own logits, two launches bitwise equal, at most
+    ``FUSED_MAX_BARRIERS`` grid barriers a frame, and stream 0's logits
+    bitwise those of the same stream launched alone."""
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=3, device=cuda)
+    qdec = _fused_bundle(model, cfg, head)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    N, Va, L = cfg.audio_num_codebooks, cfg.audio_vocab_size, cfg.decoder.num_hidden_layers
+    last_h = torch.randn((B, cfg.backbone.hidden_size), generator=gen, device=cuda).bfloat16()
+    x0 = (last_h @ model.params["projection"]).float()
+    c0 = (last_h @ model.params["codebook0_head"]).float()
+    temp = torch.full((B,), 0.8, device=cuda)
+    topk = torch.full((B,), 5, dtype=torch.int32, device=cuda)
+    for greedy in (True, False):
+        gum = fd.build_frame_gumbel(cfg, gen, B, greedy, cuda)
+        args = (x0, c0, gum, temp, topk, greedy)
+        forced, (samples, lg, draws), ref = _fused_logits(qdec, cfg, args, B)
+        torch.cuda.synchronize()
+        assert fd.last_grid_barriers() <= FUSED_MAX_BARRIERS
+        assert torch.equal(samples, forced)
+        a, r = lg[..., :Va], ref[1][..., :Va]
+        assert torch.isfinite(a).all() and _rel_rms(a, r) <= FUSED_FULL_RMS_TOL
+        gp = F.pad(gum, (0, lg.shape[-1] - Va))
+        mine = torch.stack([fd.sample_row(lg[i], gp[i], temp[:, None], topk[:, None], greedy)
+                            for i in range(N)], dim=1)
+        assert torch.equal(mine, draws)
+        again = fd.fused_decode_codebooks(qdec, cfg, *args, forced=forced, return_logits=True)
+        assert all(torch.equal(x, y) for x, y in zip((samples, lg, draws), again))
+        solo = fd.fused_decode_codebooks(qdec, cfg, x0[:1], c0[:1], gum[:, :1], temp[:1],
+                                         topk[:1], greedy, forced=forced[:1], return_logits=True)
+        assert torch.equal(solo[1][:, 0], lg[:, 0])
+        for l in range(L):
+            _, got, want = _fused_logits(_decoder_layer(qdec, l), cfg, args, B)
+            a, r = got[1][..., :Va], want[1][..., :Va]
+            assert (a != r).float().mean().item() <= FUSED_LAYER_LIMITS["share"], l
+            assert _rel_rms(a, r) <= FUSED_LAYER_LIMITS["rel_rms"], l
