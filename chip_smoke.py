@@ -9,7 +9,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    sources in ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together); every instantiation of the bf16 K3, K5a and K5b must hold
    HGMMA (wgmma) instructions (``cuobjdump -sass``), the scalar kernels
-   none, and K2 HMMA (mma.sync);
+   none, and K2 and both instantiations of the int8 / int4 backbone step
+   HMMA (mma.sync);
 2. the flash prefill kernel held against its plain version at CSM-1B prefill
    shapes (B = 1 and 8 in bf16 and B = 8 in fp32, S = 256, T = 384, 32/8
    heads, hd 64, left padding);
@@ -19,10 +20,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    short of one rounding point as controls that the gates must catch;
 4. the int8 backbone decode-step kernel against its plain version (B = 1, 8
    and 32, W = 256), with the plain version on unrounded f32 operands as the
-   control;
+   control; two launches bitwise equal, stream 0 of the batch bitwise equal
+   to the same stream alone, at most 2 CUDA kernels a step (one persistent
+   launch), and the kernel's per-stage trace;
 10. (run right after phase 4) the int4 backbone decode-step kernel (K1q-4)
    the same way, on the ``bits=4`` bundle, with a second control: the plain
-   version without the ``u`` prescale; CUDA kernels per step counted;
+   version without the ``u`` prescale, and the same launch, bitwise and
+   trace checks;
 5. the fused codebook-loop kernel against its plain version at CSM-1B
    decoder width (B = 1, 8 and 32; bf16 and int8 head; greedy and sampled at
    temperature 0.8, top-k 50), teacher-forced on the plain version's tokens:
@@ -169,33 +173,34 @@ def share_differing(a, r) -> float:
 TENSOR_CORE_KERNELS = (("flash_fwd", "flash_fwd_wgmma_kernel"),
                        ("flash_bwd", "flash_bwd_dq_wgmma_kernel"),
                        ("flash_bwd", "flash_bwd_dkv_wgmma_kernel"))
-# K2's products run on mma.sync (HMMA).
-MMA_KERNELS = (("fused_decoder", "fused_decoder_kernel"),)
+# K2's and the int8 / int4 backbone step's products run on mma.sync (HMMA):
+# (source, kernel, instantiations).
+MMA_KERNELS = (("fused_decoder", "fused_decoder_kernel", 1), ("bb_decode_q", "bbq_step_kernel", 2))
 
 
 def tensor_core_check() -> dict:
     """Phase 1: the bf16 K3, K5a and K5b hold HGMMA (wgmma) instructions in
     every instantiation of the built libraries (``cuobjdump -sass``); the
-    scalar kernels (fp32 K3 / K5a / K5b) hold none; K2 holds HMMA
-    (mma.sync).  Returns the HGMMA (HMMA for K2) count per kernel
-    instantiation."""
+    scalar kernels (fp32 K3 / K5a / K5b) hold none; K2 and the int8 / int4
+    backbone step hold HMMA (mma.sync).  Returns the HGMMA (HMMA for K2 and
+    the backbone step) count per kernel instantiation."""
     from csm_tpu_torch.ops import _build
 
-    sass = _build.sass_by_function(sorted({src for src, _ in TENSOR_CORE_KERNELS + MMA_KERNELS}))
+    sass = _build.sass_by_function(sorted({src for src, _ in TENSOR_CORE_KERNELS}
+                                          | {src for src, _, _ in MMA_KERNELS}))
     counts = {}
     for _, name in TENSOR_CORE_KERNELS:
         fns = {f: s.count("HGMMA") for f, s in sass.items() if name in f}
         counts[name] = sorted(fns.values())
         check(len(fns) == 9 and all(fns.values()),
               f"{name}: HGMMA in {sum(1 for n in fns.values() if n)} of {len(fns)} instantiations")
-    for _, name in MMA_KERNELS:
+    for _, name, n in MMA_KERNELS:
         fns = {f: s.count("HMMA") for f, s in sass.items() if name in f}
         counts[name] = sorted(fns.values())
-        check(len(fns) == 1 and all(fns.values()), f"{name}: HMMA counts {counts[name]}")
-    scalar = [f for f, s in sass.items()
-              if "wgmma" not in f and "fused_decoder" not in f and "HGMMA" in s]
+        check(len(fns) == n and all(fns.values()), f"{name}: HMMA counts {counts[name]}")
+    scalar = [f for f, s in sass.items() if "wgmma" not in f and "HGMMA" in s]
     check(not scalar, f"scalar kernels hold HGMMA: {scalar}")
-    log("tensor cores: HGMMA (HMMA for K2) per instantiation " +
+    log("tensor cores: HGMMA (HMMA for K2, K1q-8 / K1q-4) per instantiation " +
         ", ".join(f"{k} {v}" for k, v in counts.items()))
     return counts
 
@@ -438,6 +443,32 @@ BBQ_LAYER_LIMITS = {"normed_h rel RMS": 2e-3, "c0_logits share differing": 0.5,
                     "new_k share differing": 0.02, "new_v share differing": 0.02}
 
 
+# The persistent kernel: one launch a step (two if its counters were cleared
+# by a memset; they re-arm themselves).
+BBQ_MAX_KERNELS = 2
+BBQ_STAGES = ("qkv", "attention", "o_proj", "gate_up", "down")
+
+
+def bbq_stage_us(kernel, args, L: int) -> dict:
+    """One step with the kernel's trace (block 0's clock at its start and as
+    it leaves each stage): µs per stage kind, summed over the layers."""
+    import torch
+
+    from csm_tpu_torch.ops.bb_kernel import stage_count
+
+    stamps = torch.zeros((stage_count(L),), dtype=torch.int64, device="cuda")
+    kernel(*args, stage_ns=stamps)
+    d = stamps.diff().double().cpu() / 1e3  # d[s]: stage s
+    out = {"init": d[0].item(), **{k: 0.0 for k in BBQ_STAGES}}
+    for l in range(L):
+        for j, k in enumerate(BBQ_STAGES):
+            out[k] += d[1 + 5 * l + j].item()
+    out["head"] = d[1 + 5 * L].item()
+    out["final"] = d[2 + 5 * L].item()
+    out["step"] = (stamps[-1] - stamps[0]).item() / 1e3
+    return out
+
+
 def _bbq_readings(got, ref) -> dict:
     nh, lg, k, v = got
     return {"normed_h rel RMS": rel_rms(nh.float(), ref[0].float()),
@@ -556,9 +587,29 @@ def check_bbq(qsb, config, B: int, gen):
         broken = [k for k, lim in BBQ_LAYER_LIMITS.items() if ctl1[c][k] > lim]
         check(bool(broken), f"{tag} B={B}: the one-layer limits do not see the {c} control")
 
+    # The fixed schedule: two launches bitwise equal, and stream 0 of a batch
+    # bitwise equal to the same stream alone.
+    again = kernel(*args)
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(out, again))
+    check(repeat_equal, f"{tag} B={B}: two launches differ")
+    solo_equal = None
+    if B > 1:
+        solo = kernel(qsb, config, h0[:1], cos[:1], sin[:1], bias[:1], kc[:, :1], vc[:, :1])
+        solo_equal = all(torch.equal(a[:, :1] if i >= 2 else a[:1], b)
+                         for i, (a, b) in enumerate(zip(out, solo)))
+        check(solo_equal, f"{tag} B={B}: stream 0 differs from the same stream alone")
+    log(f"{tag} B={B}: two launches bitwise equal {repeat_equal}; stream 0 batched = alone "
+        f"{solo_equal if B > 1 else '(B = 1)'}")
+    stages = bbq_stage_us(kernel, args, L)
+    log(f"{tag} B={B}: stage us (kernel trace, block 0, summed over {L} layers): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+
     ms = cuda_ms(lambda: kernel(*args), iters=20)
     plain_ms = cuda_ms(lambda: bb_decode_step_q_reference(*args), iters=3, warmup=1)
-    n_kernels = device_kernels(lambda: kernel(*args))
+    # Counted over 4 steps: the profiler has been seen to drop a kernel.
+    n_kernels = device_kernels(lambda: [kernel(*args) for _ in range(4)]) / 4
+    check(0 < n_kernels <= BBQ_MAX_KERNELS, f"{tag} B={B}: {n_kernels} CUDA kernels a step "
+          f"(limit {BBQ_MAX_KERNELS})")
     usable = int((bias >= 0).sum())
     w, sc = qsb["w"], qsb["s"]
     fams = ("wqkv", "wo", "w_gu", "w_down")
@@ -572,11 +623,12 @@ def check_bbq(qsb, config, B: int, gen):
     elems = sum(m.numel() for m in mats) * (2 if int4 else 1)
     n_flops = 2 * B * (elems + D * Va) + 4 * hd * nq * L * (usable + B)
     b_ms, by = bound_ms(w_bytes + io_bytes, n_flops)
-    log(f"{tag} B={B}: kernel {ms:.4f} ms ({n_kernels} CUDA kernels a step), plain "
+    log(f"{tag} B={B}: kernel {ms:.4f} ms ({n_kernels:g} CUDA kernels a step), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), weights {w_bytes / 1e9:.4f} GB")
     return dict(err=max((a.float() - r.float()).abs().max().item() for a, r in zip(out, ref)),
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
-                kernels_per_step=n_kernels,
+                kernels_per_step=n_kernels, repeat_bitwise=repeat_equal,
+                solo_bitwise=solo_equal, stage_us=stages,
                 shape=f"B={B} W={W} CSM-1B backbone {'int4' if int4 else 'int8'}",
                 full_step=full, one_layer=dict(kernel=kern, f64=f64, controls=ctl1))
 
@@ -949,8 +1001,7 @@ PORT_KERNELS = {
     "flash_bwd_dkv_f32": ("flash_bwd_dkv_kernel",),
     "bb_decode": ("gemm_partial_kernel", "rope_attn_kernel", "rmsnorm_kernel",
                   "reduce_round_kernel", "reduce_residual_kernel", "reduce_swiglu_kernel"),
-    "bb_decode_q": ("gemm_kernel", "init_kernel", "attn_kernel", "residual_kernel",
-                    "swiglu_kernel", "final_kernel", "logits_kernel"),
+    "bb_decode_q": ("bbq_step_kernel",),
     "fused_decoder": ("fused_decoder_kernel",),
 }
 # The groups each tier's profile must show.  The int8 and int4 steps share
@@ -2355,11 +2406,15 @@ def main() -> int:
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bbq[1],
              launches=counters["bb_decode_q"] + sv["bb_decode_q"],
              launches_by_path=dict(generate=counters["bb_decode_q"],
-                                   serve_int8=sv["bb_decode_q"])),
+                                   serve_int8=sv["bb_decode_q"]),
+             kernels_per_step={B: r["kernels_per_step"] for B, r in bbq.items()},
+             hmma=hgmma["bbq_step_kernel"]),
         dict(name="bb_decode_q4", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bbq4[1],
              launches=counters["bb_decode_q4"] + s4["bb_decode_q4"],
-             launches_by_path=dict(generate=counters["bb_decode_q4"], serve=s4["bb_decode_q4"])),
+             launches_by_path=dict(generate=counters["bb_decode_q4"], serve=s4["bb_decode_q4"]),
+             kernels_per_step={B: r["kernels_per_step"] for B, r in bbq4.items()},
+             hmma=hgmma["bbq_step_kernel"]),
         dict(name="fused_decoder", route="cuda", source="csm_tpu_torch/csrc/fused_decoder.cu",
              replaces="csm_tpu/ops/fused_decoder.py:566", r=fused[1],
              launches=counters["fused_decoder"] + s4["fused_decoder"],

@@ -67,11 +67,13 @@
 // has to change, bar[2] (head arrivals) is zeroed by block 0 before the
 // first barrier, and bar[3] receives the launch's count of grid barriers.
 
+#include "sync.cuh"
 #include "w8a16.cuh"
 
 namespace {
 
 using namespace w8a16;
+using namespace sync_ptx;
 
 constexpr int HD_MAX = 128;
 constexpr int G_MAX = 8;
@@ -81,104 +83,6 @@ constexpr int RING = 2;              // weight chunks in flight per block
 constexpr int CHUNK_BYTES = 16384;
 constexpr int X_BYTES = 49152;       // staged bf16 operand rows of a product
 constexpr int HEAD_KINDS = 3;        // 0 bf16, 1 int8 (+ scale), 2 f32
-
-// ---------------------------------------------------------------------------
-// PTX helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most n groups of this thread are pending (n < RING).
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
-  }
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ unsigned add_release(unsigned* p, unsigned v) {
-  unsigned old;
-  asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;\n"
-               : "=r"(old) : "l"(p), "r"(v) : "memory");
-  return old;
-}
-
-// D (+)= A B, m16n8k16, bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Grid-wide barrier (every block is resident: cooperative launch).  bar[0]
-// counts arrivals and is reset by the last one, which then advances the
-// generation bar[1].  A waiting block polls every ~100 ns: polling without
-// pause floods the L2 slice of the barrier words and slows every other
-// block's loads.
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned gen = ld_acquire(bar + 1);
-    if (add_release(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      add_release(bar + 1, 1u);
-    } else if (ld_acquire(bar + 1) == gen) {
-      const long long t0 = clock64();
-      do {
-        __nanosleep(100);
-        if (clock64() - t0 > (1ll << 35)) __trap();
-      } while (ld_acquire(bar + 1) == gen);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits until *ctr >= target (thread 0 polls as grid_sync does; the block
-// follows).
-__device__ __forceinline__ void wait_count(const unsigned* ctr, unsigned target) {
-  if (threadIdx.x == 0 && ld_acquire(ctr) < target) {
-    const long long t0 = clock64();
-    do {
-      __nanosleep(100);
-      if (clock64() - t0 > (1ll << 35)) __trap();
-    } while (ld_acquire(ctr) < target);
-  }
-  __syncthreads();
-}
 
 // ---------------------------------------------------------------------------
 // Shapes: K splits, chunks, scratch layout (host and device agree)

@@ -22,7 +22,7 @@ logits and the new K/V rows, and never writes the cache:
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -445,23 +445,90 @@ def bb_decode_step_q_reference(
     return nh, logits[:, :config.audio_vocab_size], torch.stack(new_k), torch.stack(new_v)
 
 
-_Q_TAIL = [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F]
+_Q_TAIL = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 10 + [ctypes.c_float, _F]
+_Q_SHAPES = ([ctypes.c_int] * 9, ctypes.c_longlong)
 # The C functions of csrc/bb_decode_q.cu: (argtypes, restype).
 SIGNATURES_Q = {
-    "bb_decode_q_step": ([_F] * 27 + _Q_TAIL, ctypes.c_int),
-    "bb_decode_q4_step": ([_F] * 31 + _Q_TAIL, ctypes.c_int),
-    "bbq_part_floats": ([ctypes.c_int] * 8, ctypes.c_longlong),
+    "bb_decode_q_step": ([_F] * 24 + _Q_TAIL, ctypes.c_int),
+    "bb_decode_q4_step": ([_F] * 28 + _Q_TAIL, ctypes.c_int),
+    "bbq_scratch_bytes": _Q_SHAPES,
+    "bbq_item_count": _Q_SHAPES,
     "bbq_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+
+# Int64 slots a work item takes in the kernel's item trace (the C side
+# refuses a shorter buffer): its stage (numbered as ``stage_ns``), start,
+# end of its waits, four marks inside it (0 where it has none), end.
+TRACE_SLOTS = 8
+# Return codes from this one on are arguments the kernel refuses (shapes, a
+# window too long for its shared memory, a short buffer): csrc/bb_decode_q.cu
+# ``Refused``.
+_REFUSED = 10001
 
 
 def _lib_q():
     return _build.load(KERNEL_Q, SIGNATURES_Q)
 
 
-def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str):
+# Scratch kept across calls of the same shapes on the same device: one byte
+# buffer the kernel lays out (residual, operands, split partials, per-item
+# flags and tickets), zeroed once here, and the launch epoch.  Flags are
+# stamped with the epoch and tickets re-arm themselves, so nothing is
+# cleared between launches.  Calls on one device are ordered by its stream,
+# which the scratch assumes.
+_SCRATCH_Q: dict = {}
+
+
+def stage_count(L: int) -> int:
+    """Stamps a ``stage_ns`` buffer takes: block 0's start, then the end of
+    each stage (init; per layer QKV, attention, o-proj, gate-up, down; the
+    head; the final norm)."""
+    return 5 * L + 4
+
+
+def item_count(qsb: dict, config: CSMConfig, B: int) -> int:
+    """Work items of one int8 / int4 step of bundle ``qsb`` at batch ``B``,
+    as the kernel counts them: an ``item_ns`` trace takes
+    :data:`TRACE_SLOTS` int64 for each."""
+    bc = config.backbone
+    n = _lib_q().bbq_item_count(B, bc.hidden_size, bc.num_attention_heads,
+                                bc.num_key_value_heads, bc.head_dim, bc.intermediate_size,
+                                qsb["w"]["head"].shape[1], qsb["w"]["wqkv"].shape[0],
+                                4 if "u" in qsb else 8)
+    if n < 0:
+        raise ValueError(f"item_count: {_lib_q().bbq_error_string(-n).decode()}")
+    return n
+
+
+def _check_q_shapes(name, int4, B, D, Fi, nq, nkv, hd, n_head):
+    """ValueError naming the limit the kernel does not take (the window's
+    limit, which depends on the card's shared memory, comes back from the
+    launch)."""
+    kr = 256 if int4 else 128
+    if not 1 <= B <= MAX_VALIDATED_B:
+        raise ValueError(f"{name} kernel: B={B} outside 1..{MAX_VALIDATED_B}")
+    if nkv <= 0 or nq % nkv or nq // nkv > 8:
+        raise ValueError(f"{name} kernel: heads {nq}/{nkv} (a GQA group of at most 8)")
+    if hd not in (16, 32, 64, 128):
+        raise ValueError(f"{name} kernel: head_dim {hd} (16, 32, 64 or 128: heads tile 128 columns)")
+    if D % 128 or n_head % 128 or Fi % 64:
+        raise ValueError(f"{name} kernel: D={D} and the head's {n_head} columns must be multiples "
+                         f"of 128, F={Fi} of 64")
+    if D % kr or (nq * hd) % kr or Fi % kr:
+        raise ValueError(f"{name} kernel: D={D}, nq*hd={nq * hd} and F={Fi} must be multiples of "
+                         f"{kr} (whole weight chunks)")
+    if B * (D // 128) > 1024:
+        raise ValueError(f"{name} kernel: B={B} x D/128={D // 128} tile sums of squares > 1024")
+
+
+def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str, stage_ns=None,
+              item_ns=None):
     """Launch the int8 (``"u"`` absent) or int4 step of ``csrc/bb_decode_q.cu``
-    on CUDA tensors; raises on what the kernel does not take."""
+    on CUDA tensors; raises on what the kernel does not take.  ``stage_ns``
+    (int64, :func:`stage_count` elements, on the device) receives block 0's
+    trace; ``item_ns`` (int64, :data:`TRACE_SLOTS` per item of
+    :func:`item_count`) each work item's stage, start, end of its waits,
+    four marks inside it and end."""
     int4 = "u" in qsb
     bcfg = config.backbone
     w, s = qsb["w"], qsb["s"]
@@ -470,8 +537,7 @@ def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str):
     nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
     B, W = h0.shape[0], k_cache.shape[2]
     n_head = w["head"].shape[1]
-    if not (1 <= B <= MAX_VALIDATED_B and nq % nkv == 0 and nq // nkv <= 8 and hd % 2 == 0):
-        raise ValueError(f"{name} kernel: unsupported B={B}, heads {nq}/{nkv}, hd={hd}")
+    _check_q_shapes(name, int4, B, D, Fi, nq, nkv, hd, n_head)
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise ValueError(f"{name} kernel takes a bf16 KV cache")
     if tuple(k_cache.shape) != (L, B, W, nkv, hd) or v_cache.shape != k_cache.shape:
@@ -479,6 +545,13 @@ def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str):
     if int4 and tuple(w["wqkv"].shape[1:]) != (D // 2, (nq + 2 * nkv) * hd):
         raise ValueError(f"{name} kernel: packed wqkv shape {tuple(w['wqkv'].shape)}")
     dev = h0.device
+    if stage_ns is not None and (stage_ns.device != dev or stage_ns.dtype != torch.int64
+                                 or stage_ns.numel() < stage_count(L)):
+        raise ValueError(f"stage_ns: an int64 tensor on the kernel's device of at least "
+                         f"{stage_count(L)} elements")
+    if item_ns is not None and (item_ns.device != dev or item_ns.dtype != torch.int64):
+        raise ValueError(f"item_ns: an int64 tensor on the kernel's device, {TRACE_SLOTS} per "
+                         "work item")
     f32, bf = torch.float32, torch.bfloat16
 
     def f(x):
@@ -487,26 +560,33 @@ def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str):
     h0, cos, sin, bias_w = f(h0), f(cos), f(sin), f(bias_w)
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     lib = _lib_q()
-    part_floats = lib.bbq_part_floats(B, D, nq, nkv, hd, Fi, n_head, 4 if int4 else 8)
-    if part_floats < 0:
-        raise RuntimeError(f"{name}: {lib.bbq_error_string(-part_floats).decode()}")
+    key = (dev, int4, L, B, D, Fi, nq, nkv, hd, n_head)
+    sc = _SCRATCH_Q.get(key)
+    if sc is None:
+        n = lib.bbq_scratch_bytes(B, D, nq, nkv, hd, Fi, n_head, L, 4 if int4 else 8)
+        if n < 0:
+            raise RuntimeError(f"{name}: {lib.bbq_error_string(-n).decode()}")
+        sc = _SCRATCH_Q[key] = [torch.zeros((n,), dtype=torch.uint8, device=dev), 0]
+    sc[1] = (sc[1] + 1) & 0xFFFFFFFF
+    epoch = sc[1] - (1 << 32) if sc[1] >= 1 << 31 else sc[1]
     nh = torch.empty((B, D), dtype=f32, device=dev)
     logits = torch.empty((B, n_head), dtype=f32, device=dev)
     new_k = torch.empty((L, B, nkv, hd), dtype=bf, device=dev)
     new_v = torch.empty_like(new_k)
-    sc = {n: torch.empty(shp, dtype=f32, device=dev) for n, shp in dict(
-        h=(B, D), xb=(B, D), rs=(B,), attn=(B, nq * hd), gated=(B, Fi), part=(part_floats,)).items()}
     fams = ("wqkv", "wo", "w_gu", "w_down")
-    ptrs = [h0, cos, sin, bias_w, k_cache, v_cache, *(w[k] for k in (*fams, "head")),
-            *(s[k] for k in (*fams, "head"))]
+    ptrs = [h0.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias_w.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), *(w[k].data_ptr() for k in (*fams, "head")),
+            *(s[k].data_ptr() for k in (*fams, "head"))]
     if int4:
-        ptrs += [qsb["u"][k] for k in fams]
-    ptrs += [qsb["final_norm"], nh, logits, new_k, new_v,
-             *(sc[k] for k in ("h", "xb", "rs", "attn", "gated", "part"))]
+        ptrs += [qsb["u"][k].data_ptr() for k in fams]
+    ptrs += [qsb["final_norm"].data_ptr(), nh.data_ptr(), logits.data_ptr(), new_k.data_ptr(),
+             new_v.data_ptr(), sc[0].data_ptr(), None if stage_ns is None else stage_ns.data_ptr(),
+             None if item_ns is None else item_ns.data_ptr()]
     fn = lib.bb_decode_q4_step if int4 else lib.bb_decode_q_step
-    rc = fn(*(t.data_ptr() for t in ptrs), part_floats,
-            L, B, D, Fi, nq, nkv, hd, W, n_head, float(bcfg.rms_norm_eps),
-            _build.stream_handle(dev))
+    rc = fn(*ptrs, sc[0].numel(), 0 if item_ns is None else item_ns.numel(), L, B, D, Fi, nq,
+            nkv, hd, W, n_head, epoch, float(bcfg.rms_norm_eps), _build.stream_handle(dev))
+    if rc >= _REFUSED:
+        raise ValueError(f"{name} kernel (B={B}, W={W}): {lib.bbq_error_string(rc).decode()}")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.bbq_error_string(rc).decode()}")
     return nh, logits[:, :config.audio_vocab_size], new_k, new_v
@@ -521,17 +601,23 @@ def bb_decode_step_q(
     bias_w: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
+    stage_ns: Optional[torch.Tensor] = None,
+    item_ns: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One int8 backbone decode step.  CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/bb_decode_q.cu`` (and raise on what it does
-    not take).  ``bb_decode_step_q.launches`` counts kernel launches."""
+    CUDA tensors launch ``csrc/bb_decode_q.cu``, one persistent kernel (and
+    raise on what it does not take); ``stage_ns`` and ``item_ns`` receive its
+    traces (see :func:`_launch_q`).  ``bb_decode_step_q.launches`` counts kernel
+    launches."""
     if "u" in qsb:
         raise ValueError("bb_decode_step_q takes an int8 bundle; int4 goes to bb_decode_step_q4")
-    if h0.device.type == "cpu":
+    if h0.device.type == "cpu" and stage_ns is None and item_ns is None:
         return bb_decode_step_q_reference(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if h0.device.type != "cuda":
-        raise ValueError(f"bb_decode_step_q: unsupported device {h0.device}")
-    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q")
+        raise ValueError(f"bb_decode_step_q: unsupported device {h0.device} (stage_ns needs the "
+                         "kernel)")
+    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q",
+                    stage_ns, item_ns)
     bb_decode_step_q.launches += 1
     return out
 
@@ -548,19 +634,24 @@ def bb_decode_step_q4(
     bias_w: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
+    stage_ns: Optional[torch.Tensor] = None,
+    item_ns: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One int4 backbone decode step (a ``bits=4`` bundle).  CPU tensors take
     the plain version (:func:`bb_decode_step_q_reference`, which reads the
     bundle's ``"u"``); CUDA tensors launch the int4 step of
-    ``csrc/bb_decode_q.cu`` (and raise on what it does not take).
+    ``csrc/bb_decode_q.cu`` (and raise on what it does not take); ``stage_ns``
+    as for :func:`bb_decode_step_q`.
     ``bb_decode_step_q4.launches`` counts kernel launches."""
     if "u" not in qsb:
         raise ValueError("bb_decode_step_q4 takes an int4 bundle (with \"u\")")
-    if h0.device.type == "cpu":
+    if h0.device.type == "cpu" and stage_ns is None and item_ns is None:
         return bb_decode_step_q_reference(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if h0.device.type != "cuda":
-        raise ValueError(f"bb_decode_step_q4: unsupported device {h0.device}")
-    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q4")
+        raise ValueError(f"bb_decode_step_q4: unsupported device {h0.device} (stage_ns needs the "
+                         "kernel)")
+    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q4",
+                    stage_ns, item_ns)
     bb_decode_step_q4.launches += 1
     return out
 

@@ -118,25 +118,69 @@ def _rel_rms(a, r) -> float:
     return ((a.float() - r.float()).norm() / r.float().norm()).item()
 
 
-@pytest.mark.parametrize("B", [1, 8, 32])
-def test_bb_q_kernel_matches_plain_version(cuda, B):
+def _bbq_config(name: str) -> CSMConfig:
+    """``small`` is :func:`_config`; ``hd32`` has head_dim 32 and 8/2 heads
+    (3 QKV tiles of 4 heads each)."""
+    if name == "small":
+        return _config()
+    return CSMConfig.tiny(
+        backbone=LlamaConfig(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=8, num_key_value_heads=2,
+                             max_position_embeddings=64),
+        decoder=LlamaConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                            num_attention_heads=2, num_key_value_heads=1,
+                            max_position_embeddings=32),
+    )
+
+
+def _bbq_inputs(cfg, B: int, W: int, seed: int, dev):
+    bc = cfg.backbone
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h0 = (0.1 * torch.randn((B, bc.hidden_size), generator=gen, device=dev)).bfloat16().float()
+    cos = torch.randn((B, bc.head_dim), generator=gen, device=dev)
+    sin = torch.randn((B, bc.head_dim), generator=gen, device=dev)
+    bias = torch.where(torch.rand((B, W), generator=gen, device=dev) < 0.6, 0.0, -1e9).float()
+    shape = (bc.num_hidden_layers, B, W, bc.num_key_value_heads, bc.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    return h0, cos, sin, bias, kc, vc
+
+
+def _bbq_misfit(got, want) -> bool:
+    """The K1q one-layer limits: the f32 normed hidden within 2e-3 relative
+    RMS, at most 10 % of the logits and 2 % of the new K/V rows one bf16
+    rounding apart."""
+    return (_rel_rms(got[0], want[0]) > 2e-3 or (got[1] != want[1]).float().mean() > 0.1
+            or any((a != r).float().mean() > 0.02 for a, r in zip(got[2:], want[2:])))
+
+
+def _bbq_repeat_and_solo(kernel, args, out) -> None:
+    """A second launch bitwise equal to ``out``; stream 0 alone bitwise equal
+    to stream 0 of the batch (the K splits are fixed by the shapes)."""
+    qsb, cfg, h0, cos, sin, bias, kc, vc = args
+    for a, b in zip(out, kernel(*args)):
+        assert torch.equal(a, b)
+    solo = kernel(qsb, cfg, h0[:1], cos[:1], sin[:1], bias[:1], kc[:, :1], vc[:, :1])
+    for i, (a, one) in enumerate(zip(out, solo)):
+        assert torch.equal(a[:, :1] if i >= 2 else a[:1], one), i
+
+
+# The K1q cases: the small config at a window of 40 keys, of one key and a
+# ragged 37, and a config with head_dim 32.
+BBQ_CASES = [("small", 40), ("small", 1), ("small", 37), ("hd32", 37)]
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+@pytest.mark.parametrize("cfg_name,W", BBQ_CASES)
+def test_bb_q_kernel_matches_plain_version(cuda, cfg_name, W, B):
     """The int8 step: same f32 arithmetic in another summation order, so the
     f32 normed hidden within 1e-3 relative RMS and at most 2 % (K/V) and
-    10 % (logits) of the bf16 values one rounding apart."""
-    cfg = _config()
+    10 % (logits) of the bf16 values one rounding apart; bitwise repeatable
+    and the same for a stream alone as in its batch."""
+    cfg = _bbq_config(cfg_name)
     model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
     qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=8)
-    bc = cfg.backbone
-    gen = torch.Generator(device=cuda).manual_seed(B)
-    W = 40
-    h0 = (0.1 * torch.randn((B, bc.hidden_size), generator=gen, device=cuda)).bfloat16().float()
-    cos = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
-    sin = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
-    bias = torch.where(torch.rand((B, W), generator=gen, device=cuda) < 0.6, 0.0, -1e9)
-    shape = (bc.num_hidden_layers, B, W, bc.num_key_value_heads, bc.head_dim)
-    kc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
-    vc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
-    args = (qsb, cfg, h0, cos, sin, bias.float(), kc, vc)
+    args = (qsb, cfg, *_bbq_inputs(cfg, B, W, B, cuda))
     before = bb_kernel.bb_decode_step_q.launches
     out = bb_kernel.bb_decode_step(*args)
     ref = bb_kernel.bb_decode_step_q_reference(*args)
@@ -148,6 +192,7 @@ def test_bb_q_kernel_matches_plain_version(cuda, B):
     assert (out[1] != ref[1]).float().mean().item() <= 0.1
     for a, r in zip(out[2:], ref[2:]):
         assert (a != r).float().mean().item() <= 0.02
+    _bbq_repeat_and_solo(bb_kernel.bb_decode_step_q, args, out)
 
 
 def _one_layer(qsb: dict, l: int) -> dict:
@@ -159,46 +204,36 @@ def _one_layer(qsb: dict, l: int) -> dict:
     return out
 
 
-@pytest.mark.parametrize("B", [1, 8, 32])
-def test_bb_q4_kernel_matches_plain_version_one_layer_at_a_time(cuda, B):
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+@pytest.mark.parametrize("cfg_name,W", BBQ_CASES)
+def test_bb_q4_kernel_matches_plain_version_one_layer_at_a_time(cuda, cfg_name, W, B):
     """The int4 step: the full step within 5e-2 relative RMS (a gross gate:
     flipped bf16 roundings carry on through the layers); each layer alone,
-    fed the plain version's residual, with the f32 normed hidden within 2e-3
-    relative RMS and at most 2 % (K/V) and 10 % (logits) of the bf16 values
-    one rounding apart.  The plain version without the ``u`` prescale breaks
-    the one-layer limits."""
-    cfg = _config()
+    fed the plain version's residual, within the one-layer limits
+    (:func:`_bbq_misfit`).  The plain version without the ``u`` prescale
+    breaks the one-layer limits.  Bitwise repeatable, and the same for a
+    stream alone as in its batch."""
+    cfg = _bbq_config(cfg_name)
     model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
     qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=4)
-    bc = cfg.backbone
-    gen = torch.Generator(device=cuda).manual_seed(B)
-    W = 40
-    h0 = (0.1 * torch.randn((B, bc.hidden_size), generator=gen, device=cuda)).bfloat16().float()
-    cos = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
-    sin = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
-    bias = torch.where(torch.rand((B, W), generator=gen, device=cuda) < 0.6, 0.0, -1e9).float()
-    shape = (bc.num_hidden_layers, B, W, bc.num_key_value_heads, bc.head_dim)
-    kc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
-    vc = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    h0, cos, sin, bias, kc, vc = _bbq_inputs(cfg, B, W, B, cuda)
+    args = (qsb, cfg, h0, cos, sin, bias, kc, vc)
     before = bb_kernel.bb_decode_step_q4.launches
-    out = bb_kernel.bb_decode_step(qsb, cfg, h0, cos, sin, bias, kc, vc)
-    ref = bb_kernel.bb_decode_step_q_reference(qsb, cfg, h0, cos, sin, bias, kc, vc)
+    out = bb_kernel.bb_decode_step(*args)
+    ref = bb_kernel.bb_decode_step_q_reference(*args)
     torch.cuda.synchronize()
     assert bb_kernel.bb_decode_step_q4.launches == before + 1
     for a, r in zip(out, ref):
         assert a.shape == r.shape and torch.isfinite(a.float()).all()
     assert _rel_rms(out[0], ref[0]) <= 5e-2 and _rel_rms(out[1], ref[1]) <= 5e-2
-
-    def misfit(got, want):
-        return (_rel_rms(got[0], want[0]) > 2e-3 or (got[1] != want[1]).float().mean() > 0.1
-                or any((a != r).float().mean() > 0.02 for a, r in zip(got[2:], want[2:])))
+    _bbq_repeat_and_solo(bb_kernel.bb_decode_step_q4, args, out)
 
     h, control_broke = h0, False
-    for l in range(bc.num_hidden_layers):
+    for l in range(cfg.backbone.num_hidden_layers):
         a1 = (_one_layer(qsb, l), cfg, h, cos, sin, bias, kc[l:l + 1], vc[l:l + 1])
         r1 = bb_kernel.bb_decode_step_q_reference(*a1)
-        assert not misfit(bb_kernel.bb_decode_step_q4(*a1), r1), l
-        control_broke |= misfit(bb_kernel.bb_decode_step_q_reference(*a1, prescale=False), r1)
+        assert not _bbq_misfit(bb_kernel.bb_decode_step_q4(*a1), r1), l
+        control_broke |= _bbq_misfit(bb_kernel.bb_decode_step_q_reference(*a1, prescale=False), r1)
         h, _, _ = bb_kernel.bbq_layer_reference(qsb, cfg, l, h, cos, sin, bias, kc[l], vc[l])
     assert control_broke
 
@@ -784,3 +819,75 @@ def test_fused_kernel_holds_the_phase5_limits(cuda, B, head):
             a, r = got[1][..., :Va], want[1][..., :Va]
             assert (a != r).float().mean().item() <= FUSED_LAYER_LIMITS["share"], l
             assert _rel_rms(a, r) <= FUSED_LAYER_LIMITS["rel_rms"], l
+
+
+# ---------------------------------------------------------------------------
+# K1q-8 / K1q-4: one persistent launch a step
+# ---------------------------------------------------------------------------
+
+
+def _cuda_kernels(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
+
+
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_bbq_step_is_one_cuda_kernel(cuda, bits, B):
+    """A step is one persistent launch; its stage trace stamps block 0's
+    clock in order through every stage, and its item trace holds every
+    item's stage in list order and its times in order."""
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
+    qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=bits)
+    kernel = bb_kernel.bb_decode_step_q4 if bits == 4 else bb_kernel.bb_decode_step_q
+    args = (qsb, cfg, *_bbq_inputs(cfg, B, 40, B, cuda))
+    kernel(*args)
+    # chip_smoke's bound, over 4 steps: the profiler has been seen to drop a
+    # kernel now and then.
+    assert 0 < _cuda_kernels(lambda: [kernel(*args) for _ in range(4)]) / 4 <= 2
+    L = cfg.backbone.num_hidden_layers
+    stamps = torch.zeros((bb_kernel.stage_count(L),), dtype=torch.int64, device=cuda)
+    kernel(*args, stage_ns=stamps)
+    d = stamps.diff()
+    assert stamps[0].item() > 0 and bool((d >= 0).all())
+    S = bb_kernel.TRACE_SLOTS
+    items = torch.zeros((S * bb_kernel.item_count(qsb, cfg, B),), dtype=torch.int64, device=cuda)
+    kernel(*args, item_ns=items)
+    rows = items.view(-1, S)
+    assert bool((rows[:, 0].diff() >= 0).all()) and rows[-1, 0].item() == 5 * L + 2
+    assert bool((rows[:, 1] > 0).all() and (rows[:, 2] >= rows[:, 1]).all()
+                and (rows[:, S - 1] >= rows[:, 2]).all())
+
+
+def test_bbq_kernels_run_on_the_tensor_cores(cuda):
+    """Both instantiations of the persistent step (int8, int4) hold HMMA."""
+    from csm_tpu_torch.ops import _build
+
+    sass = _build.sass_by_function(["bb_decode_q"])
+    fns = {f: s for f, s in sass.items() if "bbq_step_kernel" in f}
+    assert len(fns) == 2 and all("HMMA" in s for s in fns.values()), sorted(fns)
+
+
+def test_bbq_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
+    qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=8)
+    args = _bbq_inputs(cfg, bb_kernel.MAX_VALIDATED_B + 1, 8, 0, cuda)
+    with pytest.raises(ValueError, match="outside"):
+        bb_kernel.bb_decode_step_q(qsb, cfg, *args)
+    h0, cos, sin, bias, kc, vc = _bbq_inputs(cfg, 1, 8, 0, cuda)
+    with pytest.raises(ValueError, match="bf16 KV cache"):
+        bb_kernel.bb_decode_step_q(qsb, cfg, h0, cos, sin, bias, kc.float(), vc.float())
+    short = torch.zeros((bb_kernel.TRACE_SLOTS,), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="item trace"):
+        bb_kernel.bb_decode_step_q(qsb, cfg, h0, cos, sin, bias, kc, vc, item_ns=short)
+    with pytest.raises(ValueError, match="window"):
+        bb_kernel.bb_decode_step_q(qsb, cfg, *_bbq_inputs(cfg, 1, 16384, 0, cuda))
