@@ -9,15 +9,18 @@ Phases, each printed as it runs; any failure exits non-zero:
    sources in ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together); every instantiation of the bf16 K3, K5a and K5b must hold
    HGMMA (wgmma) instructions (``cuobjdump -sass``), the scalar kernels
-   none, and K2 and both instantiations of the int8 / int4 backbone step
-   HMMA (mma.sync);
+   none, and K2, the exact backbone step and both instantiations of the
+   int8 / int4 backbone step HMMA (mma.sync);
 2. the flash prefill kernel held against its plain version at CSM-1B prefill
    shapes (B = 1 and 8 in bf16 and B = 8 in fp32, S = 256, T = 384, 32/8
    heads, hd 64, left padding);
 3. the exact backbone decode-step kernel held against its plain version at
    full CSM-1B width (B = 1 and 8, W = 256, partly valid window): the full
    step, then one layer at a time in three stages, with the plain version
-   short of one rounding point as controls that the gates must catch;
+   short of one rounding point as controls that the gates must catch; two
+   launches bitwise equal, stream 0 of B = 8 bitwise equal to the same
+   stream alone, at most 2 CUDA kernels a step (one persistent launch), and
+   the kernel's per-stage trace;
 4. the int8 backbone decode-step kernel against its plain version (B = 1, 8
    and 32, W = 256), with the plain version on unrounded f32 operands as the
    control; two launches bitwise equal, stream 0 of the batch bitwise equal
@@ -124,10 +127,13 @@ FAILURES = []
 
 
 def check(ok: bool, msg: str) -> None:
-    """Record a failed check; the run goes on and exits non-zero at the end."""
+    """Record a failed check; the run goes on and exits non-zero at the end.
+    The failure goes to standard error too, so that the end of the error
+    stream names it."""
     if not ok:
         FAILURES.append(msg)
         print(f"FAIL: {msg}", flush=True)
+        print(f"FAIL: {msg}", file=sys.stderr, flush=True)
 
 
 def log(msg: str) -> None:
@@ -173,17 +179,18 @@ def share_differing(a, r) -> float:
 TENSOR_CORE_KERNELS = (("flash_fwd", "flash_fwd_wgmma_kernel"),
                        ("flash_bwd", "flash_bwd_dq_wgmma_kernel"),
                        ("flash_bwd", "flash_bwd_dkv_wgmma_kernel"))
-# K2's and the int8 / int4 backbone step's products run on mma.sync (HMMA):
-# (source, kernel, instantiations).
-MMA_KERNELS = (("fused_decoder", "fused_decoder_kernel", 1), ("bb_decode_q", "bbq_step_kernel", 2))
+# K2's and the backbone steps' products run on mma.sync (HMMA): (source,
+# kernel, instantiations).
+MMA_KERNELS = (("fused_decoder", "fused_decoder_kernel", 1), ("bb_decode", "bb_step_kernel", 1),
+               ("bb_decode_q", "bbq_step_kernel", 2))
 
 
 def tensor_core_check() -> dict:
     """Phase 1: the bf16 K3, K5a and K5b hold HGMMA (wgmma) instructions in
     every instantiation of the built libraries (``cuobjdump -sass``); the
-    scalar kernels (fp32 K3 / K5a / K5b) hold none; K2 and the int8 / int4
-    backbone step hold HMMA (mma.sync).  Returns the HGMMA (HMMA for K2 and
-    the backbone step) count per kernel instantiation."""
+    scalar kernels (fp32 K3 / K5a / K5b) hold none; K2 and the backbone
+    steps (exact, int8, int4) hold HMMA (mma.sync).  Returns the HGMMA (HMMA
+    for K2 and the backbone steps) count per kernel instantiation."""
     from csm_tpu_torch.ops import _build
 
     sass = _build.sass_by_function(sorted({src for src, _ in TENSOR_CORE_KERNELS}
@@ -200,7 +207,7 @@ def tensor_core_check() -> dict:
         check(len(fns) == n and all(fns.values()), f"{name}: HMMA counts {counts[name]}")
     scalar = [f for f, s in sass.items() if "wgmma" not in f and "HGMMA" in s]
     check(not scalar, f"scalar kernels hold HGMMA: {scalar}")
-    log("tensor cores: HGMMA (HMMA for K2, K1q-8 / K1q-4) per instantiation " +
+    log("tensor cores: HGMMA (HMMA for K2, K1, K1q-8 / K1q-4) per instantiation " +
         ", ".join(f"{k} {v}" for k, v in counts.items()))
     return counts
 
@@ -398,6 +405,7 @@ def check_bb(qsb, config, B: int, gen):
             f"{worst[0]}/{worst[1]} {ctl[p][worst]:.2e} (limit {BB_SHARE_LIMITS[worst]:g})")
         check(bool(broken), f"bb B={B}: the one-layer limits do not see a missing '{p}' rounding")
 
+    launch = launch_checks("bb", bb_decode_step, args, out)
     ms = cuda_ms(lambda: bb_decode_step(*args), iters=20)
     plain_ms = cuda_ms(lambda: bb_decode_step_reference(*args), iters=3, warmup=1)
     # Bytes this data needs: every weight once (the c0 head at its Va real
@@ -412,10 +420,11 @@ def check_bb(qsb, config, B: int, gen):
     io_bytes = nbytes(h0, cos, sin, bias, *out) + kv_bytes
     n_flops = 2 * B * (sum(m.numel() for m in mats) + head_elems) + 4 * hd * nq * L * (usable + B)
     b_ms, by = bound_ms(w_bytes + io_bytes, n_flops)
-    log(f"bb B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
-        f"weights {w_bytes / 1e9:.4f} GB, K/V of usable slots {kv_bytes / 1e6:.2f} MB")
+    log(f"bb B={B}: kernel {ms:.4f} ms ({launch['kernels_per_step']:g} CUDA kernels a step), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), weights {w_bytes / 1e9:.4f} GB, K/V of "
+        f"usable slots {kv_bytes / 1e6:.2f} MB")
     return dict(err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=by, shape=f"B={B} W={W} CSM-1B backbone bf16",
+                bound_ms=b_ms, bound_by=by, shape=f"B={B} W={W} CSM-1B backbone bf16", **launch,
                 full_step=full, one_layer_share=dict(
                     kernel={f"{k[0]}/{k[1]}": x for k, x in kern.items()},
                     f64={f"{k[0]}/{k[1]}": x for k, x in wit.items()},
@@ -516,6 +525,36 @@ def device_kernels(fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
 
 
+def launch_checks(tag: str, kernel, args, out) -> dict:
+    """The persistent backbone steps' launch checks (phases 3, 4 and 10): a
+    second launch bitwise equal to ``out``, stream 0 of a batch bitwise
+    equal to the same stream alone (the K splits are fixed by the shapes),
+    block 0's stage trace, and at most BBQ_MAX_KERNELS CUDA kernels a step."""
+    import torch
+
+    qsb, config, h0, cos, sin, bias, kc, vc = args
+    B, L = h0.shape[0], kc.shape[0]
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(out, kernel(*args)))
+    check(repeat_equal, f"{tag} B={B}: two launches differ")
+    solo_equal = None
+    if B > 1:
+        solo = kernel(qsb, config, h0[:1], cos[:1], sin[:1], bias[:1], kc[:, :1], vc[:, :1])
+        solo_equal = all(torch.equal(a[:, :1] if i >= 2 else a[:1], b)
+                         for i, (a, b) in enumerate(zip(out, solo)))
+        check(solo_equal, f"{tag} B={B}: stream 0 differs from the same stream alone")
+    log(f"{tag} B={B}: two launches bitwise equal {repeat_equal}; stream 0 batched = alone "
+        f"{solo_equal if B > 1 else '(B = 1)'}")
+    stages = bbq_stage_us(kernel, args, L)
+    log(f"{tag} B={B}: stage us (kernel trace, block 0, summed over {L} layers): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    # Counted over 4 steps: the profiler has been seen to drop a kernel.
+    n_kernels = device_kernels(lambda: [kernel(*args) for _ in range(4)]) / 4
+    check(0 < n_kernels <= BBQ_MAX_KERNELS, f"{tag} B={B}: {n_kernels} CUDA kernels a step "
+          f"(limit {BBQ_MAX_KERNELS})")
+    return dict(kernels_per_step=n_kernels, repeat_bitwise=repeat_equal, solo_bitwise=solo_equal,
+                stage_us=stages)
+
+
 def check_bbq(qsb, config, B: int, gen):
     """Phase 4 (int8 bundle) and phase 10 (int4 bundle, K1q-4): the kernel
     against its plain version, with the f32-operand control and, for int4,
@@ -587,29 +626,9 @@ def check_bbq(qsb, config, B: int, gen):
         broken = [k for k, lim in BBQ_LAYER_LIMITS.items() if ctl1[c][k] > lim]
         check(bool(broken), f"{tag} B={B}: the one-layer limits do not see the {c} control")
 
-    # The fixed schedule: two launches bitwise equal, and stream 0 of a batch
-    # bitwise equal to the same stream alone.
-    again = kernel(*args)
-    repeat_equal = all(torch.equal(a, b) for a, b in zip(out, again))
-    check(repeat_equal, f"{tag} B={B}: two launches differ")
-    solo_equal = None
-    if B > 1:
-        solo = kernel(qsb, config, h0[:1], cos[:1], sin[:1], bias[:1], kc[:, :1], vc[:, :1])
-        solo_equal = all(torch.equal(a[:, :1] if i >= 2 else a[:1], b)
-                         for i, (a, b) in enumerate(zip(out, solo)))
-        check(solo_equal, f"{tag} B={B}: stream 0 differs from the same stream alone")
-    log(f"{tag} B={B}: two launches bitwise equal {repeat_equal}; stream 0 batched = alone "
-        f"{solo_equal if B > 1 else '(B = 1)'}")
-    stages = bbq_stage_us(kernel, args, L)
-    log(f"{tag} B={B}: stage us (kernel trace, block 0, summed over {L} layers): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
-
+    launch = launch_checks(tag, kernel, args, out)
     ms = cuda_ms(lambda: kernel(*args), iters=20)
     plain_ms = cuda_ms(lambda: bb_decode_step_q_reference(*args), iters=3, warmup=1)
-    # Counted over 4 steps: the profiler has been seen to drop a kernel.
-    n_kernels = device_kernels(lambda: [kernel(*args) for _ in range(4)]) / 4
-    check(0 < n_kernels <= BBQ_MAX_KERNELS, f"{tag} B={B}: {n_kernels} CUDA kernels a step "
-          f"(limit {BBQ_MAX_KERNELS})")
     usable = int((bias >= 0).sum())
     w, sc = qsb["w"], qsb["s"]
     fams = ("wqkv", "wo", "w_gu", "w_down")
@@ -623,12 +642,10 @@ def check_bbq(qsb, config, B: int, gen):
     elems = sum(m.numel() for m in mats) * (2 if int4 else 1)
     n_flops = 2 * B * (elems + D * Va) + 4 * hd * nq * L * (usable + B)
     b_ms, by = bound_ms(w_bytes + io_bytes, n_flops)
-    log(f"{tag} B={B}: kernel {ms:.4f} ms ({n_kernels:g} CUDA kernels a step), plain "
+    log(f"{tag} B={B}: kernel {ms:.4f} ms ({launch['kernels_per_step']:g} CUDA kernels a step), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), weights {w_bytes / 1e9:.4f} GB")
     return dict(err=max((a.float() - r.float()).abs().max().item() for a, r in zip(out, ref)),
-                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
-                kernels_per_step=n_kernels, repeat_bitwise=repeat_equal,
-                solo_bitwise=solo_equal, stage_us=stages,
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by, **launch,
                 shape=f"B={B} W={W} CSM-1B backbone {'int4' if int4 else 'int8'}",
                 full_step=full, one_layer=dict(kernel=kern, f64=f64, controls=ctl1))
 
@@ -999,8 +1016,7 @@ PORT_KERNELS = {
     "flash_bwd_dq_f32": ("flash_bwd_dq_kernel",),
     "flash_bwd_dkv": ("flash_bwd_dkv_wgmma_kernel",),
     "flash_bwd_dkv_f32": ("flash_bwd_dkv_kernel",),
-    "bb_decode": ("gemm_partial_kernel", "rope_attn_kernel", "rmsnorm_kernel",
-                  "reduce_round_kernel", "reduce_residual_kernel", "reduce_swiglu_kernel"),
+    "bb_decode": ("bb_step_kernel",),
     "bb_decode_q": ("bbq_step_kernel",),
     "fused_decoder": ("fused_decoder_kernel",),
 }
@@ -2401,7 +2417,9 @@ def main() -> int:
              launches_by_path=dict(train=tl["flash_bwd_dkv"], train_sharded=sp["flash_bwd_dkv"]),
              q_offset=shard_readings("dkv"), hgmma=hgmma["flash_bwd_dkv_wgmma_kernel"]),
         dict(name="bb_decode", route="cuda", source="csm_tpu_torch/csrc/bb_decode.cu",
-             replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1]),
+             replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1],
+             kernels_per_step={B: r["kernels_per_step"] for B, r in bb.items()},
+             hmma=hgmma["bb_step_kernel"]),
         dict(name="bb_decode_q", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bbq[1],
              launches=counters["bb_decode_q"] + sv["bb_decode_q"],
@@ -2445,6 +2463,8 @@ def main() -> int:
         json.dump({"kernels": kernels, "failures": FAILURES, **extra}, f, indent=1)
     if FAILURES:
         print(f"{len(FAILURES)} check(s) failed", flush=True)
+        print(f"{len(FAILURES)} check(s) failed:\n" + "\n".join(FAILURES), file=sys.stderr,
+              flush=True)
         return 1
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,4 +1,5 @@
-// One backbone decode step of the exact (bf16) tier for Hopper (sm_90a).
+// One backbone decode step of the exact (bf16) tier for Hopper (sm_90a): one
+// persistent cooperative launch per step.
 //
 // Replaces csm_tpu/ops/bb_kernel.py::bb_decode_step with bits=16 (the Pallas
 // TPU kernel built by _make_kernel, exact body layer_body_exact).  Same
@@ -9,421 +10,323 @@
 // and the new K/V rows, and never writes the cache (the caller scatters the
 // rows).  It rounds to bf16 exactly where the plain bf16 path rounds: the
 // residual is bf16-valued f32; RMSNorm rounds the normed vector and again
-// after the weight; every matmul accumulates in fp32 over its whole depth and
+// after the weight, rnd(rnd(h r) w) with r = rsqrt(mean(h^2) + eps) over the
+// whole row; every product accumulates in fp32 over its whole depth and
 // rounds once; RoPE runs in fp32 (no FMA contraction) and rounds; attention
-// has fp32 scores and softmax with bf16 probabilities; h = rnd(h + rnd(x@W));
-// gated = rnd(rnd(g * rnd(sigmoid(g))) * u).
-//
-// What the TPU kernel did for its hardware (permuted rotary columns, one-hot
-// head split/merge matmuls, VMEM weight rings, a fori_loop over layers) is
-// not carried over: heads keep the standard layout and RoPE is rotate-half
-// per head.
+// has fp32 scores and softmax with bf16 probabilities rounded after the
+// normalisation, and rounds its output; h = rnd(h + rnd(x W)); gated =
+// rnd(rnd(g * rnd(sigmoid(g))) * u), g and u each rnd(sum); the logits are
+// rnd(bf16(nh) W_head), nh the twice-rounded final norm.
 //
 // Bound on the H100: the step must read every bf16 weight once, about
 // 1.95 GB at CSM-1B width (16 layers x 121.6 MB + an 8.9 MB head), plus the
-// KV window (2 KB per slot per stream per layer), so at 3.35 TB/s it takes at
-// least ~0.58 ms; its FLOPs (2 * B * 0.98 G) are < 3 % of that at B = 8.
-// Design: each matmul is a weight-streaming skinny product y[B,N] = x[B,K]
-// W[K,N] that reads each weight element once for all B rows (16-byte loads,
-// a warp per 256 columns of a row), split over K across blocks so ~2 waves
-// fill the 132 SMs; the split partial sums (fp32) are reduced in a fixed
-// order by an elementwise epilogue that also applies the rounding, residual
-// or SwiGLU.  RMSNorm and RoPE + attention (one block per stream and kv head)
-// are kernels of their own.  The whole step is launched from one C call.
+// usable KV rows (2 KB per slot per stream per layer), so at 3.35 TB/s it
+// takes at least ~0.58 ms; its operations (2 B x 0.98 G) are far below the
+// tensor cores' rate.
+//
+// The step's machinery (schedule, flags, weight ring, attention, main loop,
+// traces) is csrc/bb_step.cuh's, shared with the int8 / int4 tiers
+// (bb_decode_q.cu).  What is this tier's:
+//
+// - Nothing is folded into the weights, so RMSNorm comes before its product:
+//   a QKV, gate-up or head split waits on every residual tile of the stage
+//   before it, sums the tiles' sums of squares of each row in order, and
+//   stages its operand rows as rnd(rnd(h r) w) from the f32 residual.  The
+//   residual epilogues write h and its tile sums of squares only.
+// - Products: the bf16 weights feed mma.sync as they are.  A chunk is 64 K
+//   rows of 256 bytes (128 columns); ldmatrix .trans loads each warp's 16
+//   columns by 16 K rows as the A fragment (rows of 16 pieces of 16 bytes,
+//   stored at piece ^ (row % 8)).  B <= 8: one 8-column operand.  The sums
+//   are compensated (mma_item) so that they land within a few f32 ulps of
+//   exact: a plain f32 sum in another order flips the bf16 rounding of a
+//   near-tie now and then, and at full depth such flips carry on.
+// - RMSNorm's scale from f64 tile sums of squares (exact for the bf16-valued
+//   residual), then the plain path's f32 steps (row_scales_exact).
+// - Epilogues round where the plain version rounds (above); the new K rows
+//   and q are RoPE'd from the rounded sums.
+//
+// Traces: chip_smoke phase 3 and tools/bbq_profile.py --items.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "bb_step.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+constexpr int KR = CHUNK_ROWS / 2;  // K rows of a bf16 chunk
+static_assert(KR == 64, "mma_item adds a chunk's four k16 slices");
 
-constexpr float NEG_INF = -1e9f;
-constexpr int NT = 256;         // threads per block
-constexpr int HD = 64;          // head dim
-constexpr int GEMM_COLS = 256;  // columns per skinny-product block: 32 lanes x 8
-constexpr int KC_MAX = 512;     // rows of x staged in shared memory per block
-constexpr int KS_MAX = 64;      // most K splits
-constexpr int N_SM = 132;
-
-__device__ __forceinline__ float rnd(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
+// Rows [0, R) x K indices [k0, k0 + n) of RMSNorm's bf16 output rnd(rnd(h
+// r) w) into X (row stride XS), rows R..rows - 1 zeroed: h [R, D] the f32
+// residual, r per row in rsv, w the norm weight [D].  32-byte loads of h
+// and w, 4 pieces in flight a thread.
+__device__ void stage_norm(const float* h, int D, int R, int rows, int k0, int n, int XS,
+                           const float* rsv, const float* w, bf16* X) {
+  constexpr int SB = 4;
+  const int per = n / 8, total = rows * per;
+  csync();  // the previous readers of X are done
+  for (int i0 = threadIdx.x; i0 < total; i0 += SB * NT) {
+    float4 v[SB][2], wv[SB][2];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
+    for (int u = 0; u < SB; ++u) {
+      const int i = i0 + u * NT, r = i / per, c = i % per;
+      const bool ld = i < total && r < R;
+      const float4* hp = reinterpret_cast<const float4*>(h + (size_t)r * D + k0 + c * 8);
+      const float4* wp = reinterpret_cast<const float4*>(w + k0 + c * 8);
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      v[u][0] = ld ? __ldcg(hp) : z;
+      v[u][1] = ld ? __ldcg(hp + 1) : z;
+      wv[u][0] = ld ? __ldg(wp) : z;
+      wv[u][1] = ld ? __ldg(wp + 1) : z;
+    }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// RMSNorm of one bf16-valued f32 row: rnd(rnd(h * rsqrt(mean(h^2) + eps)) * w).
-__global__ void __launch_bounds__(NT)
-rmsnorm_kernel(const float* __restrict__ h, const float* __restrict__ w, int D, float eps,
-               bf16* __restrict__ out, float* __restrict__ out_f32) {
-  __shared__ float red[NT / 32];
-  const float* hr = h + (size_t)blockIdx.x * D;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += NT) ss = fmaf(hr[i], hr[i], ss);
-  ss = warp_sum(ss);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = ss;
-  __syncthreads();
-  float tot = 0.f;
+    for (int u = 0; u < SB; ++u) {
+      const int i = i0 + u * NT;
+      if (i >= total) break;
+      const int r = i / per;
+      const float rs = r < R ? rsv[r] : 0.f;
+      const float a[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
+                          v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
+      const float b[8] = {wv[u][0].x, wv[u][0].y, wv[u][0].z, wv[u][0].w,
+                          wv[u][1].x, wv[u][1].y, wv[u][1].z, wv[u][1].w};
+      uint32_t o[4];
 #pragma unroll
-  for (int i = 0; i < NT / 32; ++i) tot += red[i];
-  const float r = rsqrtf(tot / (float)D + eps);
-  for (int i = threadIdx.x; i < D; i += NT) {
-    const float y = rnd(rnd(hr[i] * r) * w[i]);
-    out[(size_t)blockIdx.x * D + i] = __float2bfloat16_rn(y);
-    if (out_f32 != nullptr) out_f32[(size_t)blockIdx.x * D + i] = y;
+      for (int e = 0; e < 4; ++e)
+        o[e] = pack_bf16(bf16r(a[2 * e] * rs) * b[2 * e], bf16r(a[2 * e + 1] * rs) * b[2 * e + 1]);
+      *reinterpret_cast<uint4*>(X + r * XS + (i % per) * 8) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
   }
+  csync();
 }
 
-// Partial skinny product: part[ks, b, n] = sum_{k in split ks} x[b, k] w[k, n].
-// Block (column tile, split): warp w takes rows w, w+8, ... of the split; lane
-// takes 8 adjacent columns (one 16-byte load per row).  Each weight element is
-// read once and used for all B rows.
-template <int B>
-__global__ void __launch_bounds__(NT)
-gemm_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    float* __restrict__ part, int K, int N, int Kc) {
-  __shared__ __align__(16) bf16 xs[B][KC_MAX];
-  __shared__ float red[NT / 32][GEMM_COLS];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col = blockIdx.x * GEMM_COLS + lane * 8;
-  const int k0 = blockIdx.y * Kc;
-  for (int i = threadIdx.x; i < B * Kc; i += NT) {
-    const int b = i / Kc, r = i % Kc;
-    xs[b][r] = x[(size_t)b * K + k0 + r];
-  }
-  __syncthreads();
-
-  float acc[B][8];
+// One work item's sums on the tensor cores: ct[r][c] = sum over split ks of
+// x[r, k] W[k, col c] for the tile's 128 columns, rows r < 8.  The operand
+// is staged from ``x`` (bf16 [B, K]) or, with a norm weight ``nw``, as
+// RMSNorm's output of the residual (stage_norm).  A fragment row m of warp
+// w is tile column 16 w + m.
+__device__ void mma_item(const Params& p, Ring& ring, const Prod& q, int idx, const bf16* x,
+                         const float* nw, const float* rsv, bf16* X, float* ct) {
+  const int ks = idx / q.tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  int gch = (X_BYTES / 2 / 8 - 8) / KR;  // chunks staged together
+  gch = gch > q.nch ? q.nch : gch;
+  const int XS = gch * KR + 8;
+  // ldmatrix .trans, lane's row address: matrices 0-3 are (K rows 0-7,
+  // columns 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of the warp's 16
+  // columns: the A fragment's a0..a3.
+  const int lrow = (lane & 7) + ((lane >> 4) << 3);
+  const int lpiece = 2 * warp + ((lane >> 3) & 1);
+  // Each k16 slice is its own mma (a 16-term sum of exact products); a
+  // chunk's four are added pairwise in f32 and the chunk's sum joins the
+  // running sum with its rounding error kept (TwoSum): the sums come out
+  // within a few f32 ulps of exact, as the plain version's f64 evaluation.
+  // (Chained mma accumulation truncates at every step: its drift flipped
+  // bf16 roundings the plain path's f32 sums do not.)
+  float sum[4] = {0.f, 0.f, 0.f, 0.f}, err[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int ch0 = 0; ch0 < q.nch; ch0 += gch) {
+    const int nj = min(gch, q.nch - ch0);
+    const int k0 = ks * q.kc + ch0 * KR;
+    if (nw != nullptr) stage_norm(p.h, p.s.D, p.s.B, 8, k0, nj * KR, XS, rsv, nw, X);
+    else stage_x<false>(x, q.K, p.s.B, 8, k0, nj * KR, XS, X);
+    for (int j = 0; j < nj; ++j) {
+      const uint8_t* w = front(ring);
+      const bf16* xr = X + g * XS + j * KR + 2 * t;
+      float d[KR / 16][4];
 #pragma unroll
-  for (int b = 0; b < B; ++b)
+      for (int s = 0; s < KR / 16; ++s) {
+        uint32_t a[4];
+        const int row = 16 * s + lrow;
+        ldsm_x4_t(a, w + row * 2 * COLS + ((lpiece ^ (row & 7)) * 16));
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[b][c] = 0.f;
-
-  if (col < N) {
-    const bf16* wp = w + (size_t)k0 * N + col;
-#pragma unroll 4
-    for (int r = warp; r < Kc; r += NT / 32) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)r * N));
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-      float wf[8];
+        for (int e = 0; e < 4; ++e) d[s][e] = 0.f;
+        mma16816(d[s], a, *reinterpret_cast<const uint32_t*>(xr + 16 * s),
+                 *reinterpret_cast<const uint32_t*>(xr + 16 * s + 8));
+      }
+      pop(ring);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p2[e]);
-        wf[2 * e] = f.x;
-        wf[2 * e + 1] = f.y;
-      }
-#pragma unroll
-      for (int b = 0; b < B; ++b) {
-        const float xv = __bfloat162float(xs[b][r]);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[b][c] = fmaf(xv, wf[c], acc[b][c]);
+        const float c = (d[0][e] + d[1][e]) + (d[2][e] + d[3][e]);
+        const float s = sum[e] + c, z = s - sum[e];
+        err[e] += (sum[e] - (s - z)) + (c - z);
+        sum[e] = s;
       }
     }
   }
+  // (column 16 w + g, stream 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+  const int c0 = 16 * warp + g;
+  ct[2 * t * CT_STRIDE + c0] = sum[0] + err[0];
+  ct[(2 * t + 1) * CT_STRIDE + c0] = sum[1] + err[1];
+  ct[2 * t * CT_STRIDE + c0 + 8] = sum[2] + err[2];
+  ct[(2 * t + 1) * CT_STRIDE + c0 + 8] = sum[3] + err[3];
+  csync();
+}
 
-  const int n = blockIdx.x * GEMM_COLS + threadIdx.x;
-#pragma unroll
-  for (int b = 0; b < B; ++b) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) red[warp][lane * 8 + c] = acc[b][c];
-    __syncthreads();
-    if (n < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int w8 = 0; w8 < NT / 32; ++w8) s += red[w8][threadIdx.x];
-      part[((size_t)blockIdx.y * B + b) * N + n] = s;
+// The epilogue of a finished product tile (sums in ct), once per tile, with
+// the residual tile in ht (combine); ``tmp`` is free shared memory.  Row
+// loops are not unrolled: at small B most of an unrolled body would be
+// fetched for nothing.
+__device__ void epilogue(const Params& p, int kind, int l, int cti, float* ct, const float* ht,
+                         float* tmp) {
+  const Shape& s = p.s;
+  const int B = s.B;
+  const int c = threadIdx.x % COLS, r0 = threadIdx.x / COLS, n = cti * COLS + c;
+  switch (kind) {
+    case K_QKV: {
+      const int half = s.hd / 2, kv0 = s.nqh, v0 = s.nqh + s.nkv * s.hd, d = n % s.hd;
+      // cos / sin of every stream into shared memory, issued first.
+      float* cs = tmp;
+      float* sn = tmp + B * s.hd;
+#pragma unroll 4
+      for (int i = threadIdx.x; i < B * s.hd; i += NT) {
+        cs[i] = __ldg(p.cosb + i);
+        sn[i] = __ldg(p.sinb + i);
+      }
+      for (int r = r0; r < B; r += 2) ct[r * CT_STRIDE + c] = bf16r(ct[r * CT_STRIDE + c]);
+      csync();
+      if (n >= v0) {
+        const size_t at = (size_t)l * B * s.nkv * s.hd + (size_t)((n - v0) / s.hd) * s.hd + d;
+        for (int r = r0; r < B; r += 2)
+          p.new_v[at + (size_t)r * s.nkv * s.hd] = __float2bfloat16_rn(ct[r * CT_STRIDE + c]);
+        break;
+      }
+      const int pc = d < half ? c + half : c - half;
+      for (int r = r0; r < B; r += 2) {
+        const float x = ct[r * CT_STRIDE + c];
+        const float xr = d < half ? -ct[r * CT_STRIDE + pc] : ct[r * CT_STRIDE + pc];
+        const bf16 y = __float2bfloat16_rn(
+            __fadd_rn(__fmul_rn(x, cs[r * s.hd + d]), __fmul_rn(xr, sn[r * s.hd + d])));
+        if (n < kv0) p.qb[(size_t)r * s.nqh + n] = y;
+        else p.new_k[(((size_t)l * B + r) * s.nkv + (n - kv0) / s.hd) * s.hd + d] = y;
+      }
+      break;
     }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ float split_sum(const float* __restrict__ part, int KS, size_t BN,
-                                           size_t i) {
-  float s = 0.f;
-  for (int ks = 0; ks < KS; ++ks) s += part[ks * BN + i];
-  return s;
-}
-
-__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-
-// y = rnd(sum), stored as bf16 (QKV projection) or as bf16-valued f32 (logits).
-template <typename T>
-__global__ void reduce_round_kernel(const float* __restrict__ part, int KS, int BN,
-                                    T* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < BN) put(out + i, rnd(split_sum(part, KS, BN, i)));
-}
-
-// h = rnd(h + rnd(sum)) (o-proj and down-proj residuals).
-__global__ void reduce_residual_kernel(const float* __restrict__ part, int KS, int BN,
-                                       float* __restrict__ h) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < BN) h[i] = rnd(h[i] + rnd(split_sum(part, KS, BN, i)));
-}
-
-// part holds [KS, B, 2F] of [gate | up]; gated[b, n] = rnd(rnd(g * rnd(sig(g))) * u).
-__global__ void reduce_swiglu_kernel(const float* __restrict__ part, int KS, int B, int F,
-                                     bf16* __restrict__ gated) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * F) return;
-  const int b = i / F, n = i % F;
-  const size_t BN = (size_t)B * 2 * F;
-  const float g = rnd(split_sum(part, KS, BN, (size_t)b * 2 * F + n));
-  const float u = rnd(split_sum(part, KS, BN, (size_t)b * 2 * F + F + n));
-  const float sig = rnd(1.f / (1.f + expf(-g)));
-  gated[i] = __float2bfloat16_rn(rnd(g * sig) * u);
-}
-
-// RoPE + decode attention for one (kv head, stream): the G query heads of the
-// group against the W cached keys of the stream plus its new key (always
-// valid).  Writes the new K/V rows and the bf16 attention output.
-template <int G>
-__global__ void __launch_bounds__(NT)
-rope_attn_kernel(const bf16* __restrict__ qkv,  // [B, (nq + 2 nkv) HD]
-                 const float* __restrict__ cosb, const float* __restrict__ sinb,  // [B, HD]
-                 const float* __restrict__ bias,  // [B, W]: >= 0 usable
-                 const bf16* __restrict__ kc, const bf16* __restrict__ vc,  // [B, W, nkv, HD]
-                 bf16* __restrict__ new_k, bf16* __restrict__ new_v,  // [B, nkv, HD]
-                 bf16* __restrict__ attn,  // [B, nq HD]
-                 int W, int nkv, float scale) {
-  extern __shared__ float smem[];
-  const int nq = nkv * G;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  float* qs = smem;           // [G][HD]
-  float* kn = qs + G * HD;    // [HD]
-  float* vn = kn + HD;        // [HD]
-  float* sc = vn + HD;        // [G][W + 1]
-  const bf16* row = qkv + (size_t)b * (nq + 2 * nkv) * HD;
-  const float* cs = cosb + (size_t)b * HD;
-  const float* sn = sinb + (size_t)b * HD;
-  constexpr int HALF = HD / 2;
-
-  for (int t = threadIdx.x; t < (G + 1) * HD; t += NT) {
-    const int hh = t / HD, d = t % HD;
-    const int base = hh < G ? (kvh * G + hh) * HD : (nq + kvh) * HD;
-    const float x = __bfloat162float(row[base + d]);
-    const float xr = d < HALF ? -__bfloat162float(row[base + d + HALF])
-                              : __bfloat162float(row[base + d - HALF]);
-    const float y = rnd(__fadd_rn(__fmul_rn(x, cs[d]), __fmul_rn(xr, sn[d])));
-    if (hh < G) {
-      qs[hh * HD + d] = y;
-    } else {
-      kn[d] = y;
-      new_k[((size_t)b * nkv + kvh) * HD + d] = __float2bfloat16_rn(y);
+    case K_O:
+    case K_DOWN: {
+      for (int r = r0; r < B; r += 2)
+        ct[r * CT_STRIDE + c] = bf16r(ht[r * CT_STRIDE + c] + bf16r(ct[r * CT_STRIDE + c]));
+      csync();
+      residual_out<true>(p, cti, ct, nullptr, false, 1.f, kind == K_O ? p.ss_m : p.ss_a);
+      break;
     }
-  }
-  for (int d = threadIdx.x; d < HD; d += NT) {
-    const bf16 vv = row[(nq + nkv + kvh) * HD + d];
-    vn[d] = __bfloat162float(vv);
-    new_v[((size_t)b * nkv + kvh) * HD + d] = vv;
-  }
-  __syncthreads();
-
-  // Scores: a warp per key, two head dims per lane.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int j = warp; j <= W; j += NT / 32) {
-    float2 kf;
-    bool ok = true;
-    if (j < W) {
-      kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          kc + (((size_t)b * W + j) * nkv + kvh) * HD + 2 * lane));
-      ok = bias[(size_t)b * W + j] >= 0.f;
-    } else {
-      kf = make_float2(kn[2 * lane], kn[2 * lane + 1]);
+    case K_GU: {
+      // Thread i: gate column j = i % 64 of the pair tile, rows i / 64 + 4e.
+      const int j = threadIdx.x % 64, f = cti * 64 + j;
+      for (int r = threadIdx.x / 64; r < B; r += 4) {
+        const float gt = bf16r(ct[r * CT_STRIDE + j]);
+        const float up = bf16r(ct[r * CT_STRIDE + 64 + j]);
+        const float sg = bf16r(1.f / (1.f + expf(-gt)));
+        p.xd[(size_t)r * s.F + f] = __float2bfloat16_rn(bf16r(gt * sg) * up);
+      }
+      break;
     }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = fmaf(qs[g * HD + 2 * lane], kf.x, qs[g * HD + 2 * lane + 1] * kf.y);
-      s = warp_sum(s);
-      if (lane == 0) sc[g * (W + 1) + j] = ok ? s * scale : NEG_INF;
-    }
-  }
-  __syncthreads();
-
-  // Softmax over the W + 1 keys: a warp per head; bf16 probabilities.
-  if (warp < G) {
-    float* sg = sc + warp * (W + 1);
-    float m = -INFINITY;
-    for (int j = lane; j <= W; j += 32) m = fmaxf(m, sg[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j <= W; j += 32) {
-      const float e = expf(sg[j] - m);
-      sg[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j <= W; j += 32) sg[j] = rnd(sg[j] / sum);
-  }
-  __syncthreads();
-
-  // P.V: a thread per (head, dim).
-  for (int t = threadIdx.x; t < G * HD; t += NT) {
-    const int g = t / HD, d = t % HD;
-    const float* pg = sc + g * (W + 1);
-    const bf16* vp = vc + ((size_t)b * W * nkv + kvh) * HD + d;
-    float acc = 0.f;
-    for (int j = 0; j < W; ++j)
-      acc = fmaf(pg[j], __bfloat162float(vp[(size_t)j * nkv * HD]), acc);
-    acc = fmaf(pg[W], vn[d], acc);
-    attn[(size_t)b * nq * HD + (kvh * G + g) * HD + d] = __float2bfloat16_rn(acc);
+    default:  // K_HEAD
+      for (int r = r0; r < B; r += 2)
+        p.logits[(size_t)r * s.n_head + n] = bf16r(ct[r * CT_STRIDE + c]);
+      break;
   }
 }
 
-// K splits for a [K, N] product: enough blocks for ~2 waves, each split at
-// most KC_MAX rows deep and at least 64 rows deep where K allows.
-int pick_splits(int K, int N) {
-  const int col_blocks = (N + GEMM_COLS - 1) / GEMM_COLS;
-  int ks = 1;
-  while (ks < KS_MAX && K % (2 * ks) == 0 &&
-         (K / ks > KC_MAX || (col_blocks * ks < 2 * N_SM && K / (2 * ks) >= 64)))
-    ks *= 2;
-  if (K % ks != 0 || K / ks > KC_MAX) return -1;
-  return ks;
+__device__ void product_item(const Params& p, Ring& ring, const Item& it, uint8_t* work,
+                             float* rsv, int* flag, unsigned long long* tready) {
+  const Shape& s = p.s;
+  const Prod q = prod_of<true>(p, it.kind, it.l);
+  const int cti = it.idx % q.tiles, ks = it.idx / q.tiles;
+  wait_operand<true>(p, it.kind, it.l, q, ks);
+  mark(p, tready, 0);
+  bf16* X = reinterpret_cast<bf16*>(work);
+  float* ct = reinterpret_cast<float*>(work + X_BYTES);
+  const float* nw = it.kind == K_QKV ? p.attn_nw + (size_t)it.l * s.D
+                  : it.kind == K_GU  ? p.mlp_nw + (size_t)it.l * s.D
+                  : it.kind == K_HEAD ? p.fnw
+                                      : nullptr;
+  // RMSNorm's scale of each row, from the residual's tile sums of squares
+  // (the ct area is free until the sums).
+  if (nw != nullptr)
+    row_scales_exact(p, it.kind == K_GU ? p.ss_m : p.ss_a, reinterpret_cast<double*>(ct), rsv);
+  mma_item(p, ring, q, it.idx, it.kind == K_O ? p.xo : p.xd, nw, rsv, X, ct);
+  mark(p, tready, 1);
+  // The staging area is free now: h's tile.
+  float* ht = reinterpret_cast<float*>(work);
+  const bool res = it.kind == K_O || it.kind == K_DOWN;
+  if (!combine(p, q, it.idx, ct, flag, nullptr, nullptr, res ? p.h : nullptr, ht)) return;
+  mark(p, tready, 2);
+  epilogue(p, it.kind, it.l, cti, ct, ht, ht + 32 * CT_STRIDE);
+  mark(p, tready, 3);
+  tile_done(p, it, cti);
 }
 
-struct Ctx {
-  int B;
-  float* part;
-  long long part_floats;
-  cudaStream_t st;
+// The bf16 tier for run_step.
+struct ExactTier {
+  static constexpr bool EXACT = true;
+  static constexpr int PIECES = 16;  // chunk rows of 256 bytes
+  static __device__ __forceinline__ void product(const Params& p, Ring& ring, const Item& it,
+                                                 uint8_t* work, float* rsv, int* flag,
+                                                 unsigned long long* tready) {
+    product_item(p, ring, it, work, rsv, flag, tready);
+  }
+  static __device__ __forceinline__ void row(const Params& p, const Item& it, uint8_t* work,
+                                             float* rsv, unsigned long long* tready) {
+    row_item<true>(p, it, work, rsv, tready);
+  }
 };
 
-#define RETURN_IF_ERR(expr)                      \
-  do {                                           \
-    const cudaError_t e_ = (expr);               \
-    if (e_ != cudaSuccess) return e_;            \
-  } while (0)
-
-cudaError_t gemm(const Ctx& c, const bf16* x, const bf16* w, int K, int N, int* ks_out) {
-  const int ks = pick_splits(K, N);
-  if (ks < 0 || N % 8 != 0 || (long long)ks * c.B * N > c.part_floats) return cudaErrorInvalidValue;
-  const dim3 grid((N + GEMM_COLS - 1) / GEMM_COLS, ks);
-  const int Kc = K / ks;
-  switch (c.B) {
-#define CASE(BB) \
-  case BB: gemm_partial_kernel<BB><<<grid, NT, 0, c.st>>>(x, w, c.part, K, N, Kc); break;
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-#undef CASE
-    default: return cudaErrorInvalidValue;
-  }
-  *ks_out = ks;
-  return cudaGetLastError();
-}
-
-inline dim3 blocks_for(long long n) { return dim3((unsigned)((n + NT - 1) / NT)); }
-
-template <int G>
-cudaError_t rope_attn(const Ctx& c, const bf16* qkv, const float* cosb, const float* sinb,
-                      const float* bias, const bf16* kc, const bf16* vc, bf16* nk, bf16* nv,
-                      bf16* attn, int W, int nkv, float scale) {
-  const size_t smem = (size_t)(G * HD + 2 * HD + G * (W + 1)) * sizeof(float);
-  if (smem > 48 * 1024)
-    RETURN_IF_ERR(cudaFuncSetAttribute(rope_attn_kernel<G>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  rope_attn_kernel<G><<<dim3(nkv, c.B), NT, smem, c.st>>>(qkv, cosb, sinb, bias, kc, vc, nk, nv,
-                                                           attn, W, nkv, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t step(const float* h0, const float* cosb, const float* sinb, const float* bias,
-                 const bf16* kc, const bf16* vc, const bf16* wqkv, const bf16* wo,
-                 const bf16* w_gu, const bf16* w_down, const bf16* head, const float* attn_nw,
-                 const float* mlp_nw, const float* final_nw, float* nh, float* logits,
-                 bf16* new_k, bf16* new_v, float* h, bf16* xn, bf16* qkv, bf16* attn,
-                 bf16* gated, const Ctx& c, int L, int D, int F, int nq, int nkv, int W,
-                 int n_head, float eps) {
-  const int B = c.B;
-  const int G = nq / nkv;
-  const int QKVN = (nq + 2 * nkv) * HD;
-  const float scale = 1.0f / sqrtf((float)HD);
-  const size_t kv_layer = (size_t)B * W * nkv * HD;
-  const size_t row_layer = (size_t)B * nkv * HD;
-  int ks = 0;
-  RETURN_IF_ERR(cudaMemcpyAsync(h, h0, sizeof(float) * B * D, cudaMemcpyDeviceToDevice, c.st));
-  for (int l = 0; l < L; ++l) {
-    rmsnorm_kernel<<<B, NT, 0, c.st>>>(h, attn_nw + (size_t)l * D, D, eps, xn, nullptr);
-    RETURN_IF_ERR(cudaGetLastError());
-    RETURN_IF_ERR(gemm(c, xn, wqkv + (size_t)l * D * QKVN, D, QKVN, &ks));
-    reduce_round_kernel<bf16><<<blocks_for((long long)B * QKVN), NT, 0, c.st>>>(c.part, ks, B * QKVN, qkv);
-    RETURN_IF_ERR(cudaGetLastError());
-    const bf16* kcl = kc + l * kv_layer;
-    const bf16* vcl = vc + l * kv_layer;
-    bf16* nkl = new_k + l * row_layer;
-    bf16* nvl = new_v + l * row_layer;
-    switch (G) {
-      case 1: RETURN_IF_ERR(rope_attn<1>(c, qkv, cosb, sinb, bias, kcl, vcl, nkl, nvl, attn, W, nkv, scale)); break;
-      case 2: RETURN_IF_ERR(rope_attn<2>(c, qkv, cosb, sinb, bias, kcl, vcl, nkl, nvl, attn, W, nkv, scale)); break;
-      case 4: RETURN_IF_ERR(rope_attn<4>(c, qkv, cosb, sinb, bias, kcl, vcl, nkl, nvl, attn, W, nkv, scale)); break;
-      default: return cudaErrorInvalidValue;
-    }
-    RETURN_IF_ERR(gemm(c, attn, wo + (size_t)l * nq * HD * D, nq * HD, D, &ks));
-    reduce_residual_kernel<<<blocks_for((long long)B * D), NT, 0, c.st>>>(c.part, ks, B * D, h);
-    RETURN_IF_ERR(cudaGetLastError());
-    rmsnorm_kernel<<<B, NT, 0, c.st>>>(h, mlp_nw + (size_t)l * D, D, eps, xn, nullptr);
-    RETURN_IF_ERR(cudaGetLastError());
-    RETURN_IF_ERR(gemm(c, xn, w_gu + (size_t)l * D * 2 * F, D, 2 * F, &ks));
-    reduce_swiglu_kernel<<<blocks_for((long long)B * F), NT, 0, c.st>>>(c.part, ks, B, F, gated);
-    RETURN_IF_ERR(cudaGetLastError());
-    RETURN_IF_ERR(gemm(c, gated, w_down + (size_t)l * F * D, F, D, &ks));
-    reduce_residual_kernel<<<blocks_for((long long)B * D), NT, 0, c.st>>>(c.part, ks, B * D, h);
-    RETURN_IF_ERR(cudaGetLastError());
-  }
-  rmsnorm_kernel<<<B, NT, 0, c.st>>>(h, final_nw, D, eps, xn, nh);
-  RETURN_IF_ERR(cudaGetLastError());
-  RETURN_IF_ERR(gemm(c, xn, head, D, n_head, &ks));
-  reduce_round_kernel<float><<<blocks_for((long long)B * n_head), NT, 0, c.st>>>(c.part, ks, B * n_head, logits);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(BLOCK, 1) bb_step_kernel(const Params p) {
+  run_step<ExactTier>(p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// All tensors contiguous on the current device.  f32: h0 [B,D], cos/sin
-// [B,64], bias [B,W], norm weights [L,D] x2 and [D], outputs nh [B,D] and
-// logits [B,n_head], scratch h [B,D] and part [part_floats].  bf16: caches
-// [L,B,W,nkv,64], wqkv [L,D,(nq+2nkv)64], wo [L,nq 64,D], w_gu [L,D,2F],
-// w_down [L,F,D], head [D,n_head], outputs new_k/new_v [L,B,nkv,64], scratch
-// xn [B,D], qkv [B,(nq+2nkv)64], attn [B,nq 64], gated [B,F].
-int bb_decode_step(const void* h0, const void* cosb, const void* sinb, const void* bias,
-                   const void* kc, const void* vc, const void* wqkv, const void* wo,
-                   const void* w_gu, const void* w_down, const void* head,
-                   const void* attn_nw, const void* mlp_nw, const void* final_nw, void* nh,
-                   void* logits, void* new_k, void* new_v, void* h, void* xn, void* qkv,
-                   void* attn, void* gated, void* part, long long part_floats, int L, int B,
-                   int D, int F, int nq, int nkv, int hd, int W, int n_head, float eps,
-                   void* stream) {
-  if (hd != HD || B < 1 || B > 8 || nkv <= 0 || nq % nkv != 0 || W < 0 || D % 8 != 0 ||
-      F % 8 != 0 || n_head % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  const Ctx c{B, static_cast<float*>(part), part_floats, static_cast<cudaStream_t>(stream)};
-  return (int)step(
-      static_cast<const float*>(h0), static_cast<const float*>(cosb),
-      static_cast<const float*>(sinb), static_cast<const float*>(bias),
-      static_cast<const bf16*>(kc), static_cast<const bf16*>(vc), static_cast<const bf16*>(wqkv),
-      static_cast<const bf16*>(wo), static_cast<const bf16*>(w_gu),
-      static_cast<const bf16*>(w_down), static_cast<const bf16*>(head),
-      static_cast<const float*>(attn_nw), static_cast<const float*>(mlp_nw),
-      static_cast<const float*>(final_nw), static_cast<float*>(nh), static_cast<float*>(logits),
-      static_cast<bf16*>(new_k), static_cast<bf16*>(new_v), static_cast<float*>(h),
-      static_cast<bf16*>(xn), static_cast<bf16*>(qkv), static_cast<bf16*>(attn),
-      static_cast<bf16*>(gated), c, L, D, F, nq, nkv, W, n_head, eps);
+// Bytes of scratch a step takes at these shapes (Layout; zeroed once when
+// allocated).
+long long bb_scratch_bytes(int B, int D, int nq, int nkv, int hd, int F, int n_head, int L) {
+  if (nkv <= 0 || nq % nkv != 0 || hd <= 0) return -(long long)REFUSED_SHAPES;
+  return layout_of(shape_of(B, L, D, F, nq, nkv, hd, n_head, 0, 1)).total;
 }
 
-const char* bb_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// Work items of a step at these shapes (an item trace takes TRACE_SLOTS,
+// 8, int64 per item).
+long long bb_item_count(int B, int D, int nq, int nkv, int hd, int F, int n_head, int L) {
+  if (nkv <= 0 || nq % nkv != 0 || hd <= 0) return -(long long)REFUSED_SHAPES;
+  return sched_of(shape_of(B, L, D, F, nq, nkv, hd, n_head, 0, 1)).total;
 }
+
+// All tensors contiguous on the current device.  f32: h0 [B,D], cos/sin
+// [B,hd], bias [B,W], norm weights attn_nw / mlp_nw [L,D] and final_nw [D],
+// outputs nh [B,D] and logits [B,n_head].  bf16: caches [L,B,W,nkv,hd],
+// wqkv [L,D,(nq+2nkv)hd], wo [L,nq hd,D], wgu [L,D,2F], wdown [L,F,D], head
+// [D,n_head], outputs new_k/new_v [L,B,nkv,hd].  scratch: bb_scratch_bytes
+// bytes, zeroed when allocated, kept across calls with ``epoch`` one more
+// each launch (modulo 2^32); stamps: null or 5 L + 4 int64 (block 0's clock
+// in ns at its start and as it leaves each stage: init, per layer QKV,
+// attention, o-proj, gate-up, down, then head, final); item_ns: null or
+// item_ns_len int64, at least TRACE_SLOTS (8) per work item (bb_item_count).
+// One cooperative launch on stream.  Returns 0, a cudaError_t, or a code of
+// arguments the kernel refuses.
+int bb_decode_step(const void* h0, const void* cosb, const void* sinb, const void* bias,
+                   const void* kc, const void* vc, const void* wqkv, const void* wo,
+                   const void* wgu, const void* wdown, const void* head, const void* attn_nw,
+                   const void* mlp_nw, const void* final_nw, void* nh, void* logits, void* new_k,
+                   void* new_v, void* scratch, void* stamps, void* item_ns,
+                   long long scratch_bytes, long long item_ns_len, int L, int B, int D, int F,
+                   int nq, int nkv, int hd, int W, int n_head, int epoch, float eps,
+                   void* stream) {
+  if (nkv <= 0 || nq % nkv != 0) return REFUSED_SHAPES;
+  Params p;
+  int sms = 0;
+  const int rc = bind(p, shape_of(B, L, D, F, nq, nkv, hd, n_head, 0, 1), &sms, h0, cosb, sinb,
+                      bias, kc, vc, final_nw, nh, logits, new_k, new_v, scratch, scratch_bytes,
+                      stamps, item_ns, item_ns_len, W, epoch, eps);
+  if (rc != 0) return rc;
+  p.wqkv = static_cast<const int8_t*>(wqkv);
+  p.wo = static_cast<const int8_t*>(wo);
+  p.wgu = static_cast<const int8_t*>(wgu);
+  p.wdown = static_cast<const int8_t*>(wdown);
+  p.head = static_cast<const int8_t*>(head);
+  p.attn_nw = static_cast<const float*>(attn_nw);
+  p.mlp_nw = static_cast<const float*>(mlp_nw);
+  return (int)launch(bb_step_kernel, p, sms, static_cast<cudaStream_t>(stream));
+}
+
+const char* bb_error_string(int code) { return refused_string(code); }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """The backbone decode step (counterpart of
-``csm_tpu/ops/bb_kernel.py::bb_decode_step``) in two tiers, each a CUDA
-kernel beside its plain PyTorch version:
+``csm_tpu/ops/bb_kernel.py::bb_decode_step``) in three tiers, each a CUDA
+kernel beside its plain PyTorch version, each one persistent launch a step
+on the machinery of ``csrc/bb_step.cuh``:
 
 - ``bits=16``, the exact tier (``csrc/bb_decode.cu``, ``B <= 8``): every bf16
   rounding sits where the plain bf16 path (:mod:`csm_tpu_torch.models.llama`)
@@ -36,13 +37,10 @@ from csm_tpu_torch.ops.rope import apply_rope
 NEG_INF = -1e9
 KERNEL = "bb_decode"
 KERNEL_Q = "bb_decode_q"
-HEAD_DIM = 64
 # Largest batches routed through the kernels (the JAX tiers' validated caps);
 # larger batches take the plain path.
 MAX_VALIDATED_B_EXACT = 8
 MAX_VALIDATED_B = 32
-# The kernel splits each product's depth over at most this many blocks.
-_KS_MAX = 64
 
 
 def pack_int4_rows(q: torch.Tensor) -> torch.Tensor:
@@ -254,21 +252,6 @@ def bb_decode_step_reference(
     return nh, logits, torch.stack(new_k).to(bf), torch.stack(new_v).to(bf)
 
 
-_F = ctypes.c_void_p
-
-
-# The C functions of csrc/bb_decode.cu: (argtypes, restype).
-SIGNATURES = {
-    "bb_decode_step": ([_F] * 24 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_float, _F],
-                       ctypes.c_int),
-    "bb_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
-def _lib():
-    return _build.load(KERNEL, SIGNATURES)
-
-
 def bb_decode_step(
     qsb: dict,
     config: CSMConfig,
@@ -278,74 +261,31 @@ def bb_decode_step(
     bias_w: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
+    stage_ns: Optional[torch.Tensor] = None,
+    item_ns: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One backbone decode step.  A ``bits=4`` bundle (it carries ``"u"``)
     goes to :func:`bb_decode_step_q4`, a ``bits=8`` bundle (scales, ``"s"``)
-    to :func:`bb_decode_step_q`.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (and raise on what it does not take).
-    ``bb_decode_step.launches`` counts the exact kernel's launches."""
+    to :func:`bb_decode_step_q`.  A ``bits=16`` bundle: CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/bb_decode.cu``, one persistent
+    kernel (and raise on what it does not take); ``stage_ns`` and ``item_ns``
+    receive its traces (see :func:`_launch`).  ``bb_decode_step.launches``
+    counts the exact kernel's launches."""
     if "u" in qsb:
-        return bb_decode_step_q4(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
+        return bb_decode_step_q4(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, stage_ns,
+                                 item_ns)
     if "s" in qsb:
-        return bb_decode_step_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
-    if h0.device.type == "cpu":
+        return bb_decode_step_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, stage_ns,
+                                item_ns)
+    if h0.device.type == "cpu" and stage_ns is None and item_ns is None:
         return bb_decode_step_reference(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache)
     if h0.device.type != "cuda":
-        raise ValueError(f"bb_decode_step: unsupported device {h0.device}")
-    bcfg = config.backbone
-    L = qsb["wqkv"].shape[0]
-    D, Fi = bcfg.hidden_size, bcfg.intermediate_size
-    nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
-    B = h0.shape[0]
-    W = k_cache.shape[2]
-    Va = config.audio_vocab_size
-    n_head = qsb["head"].shape[1]
-    if not (1 <= B <= MAX_VALIDATED_B_EXACT and hd == HEAD_DIM and nq % nkv == 0
-            and nq // nkv in (1, 2, 4)):
-        raise ValueError(f"bb_decode_step kernel: unsupported B={B}, heads {nq}/{nkv}, hd={hd}")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise ValueError("bb_decode_step kernel takes a bf16 KV cache")
-    if tuple(k_cache.shape) != (L, B, W, nkv, hd) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"bb_decode_step kernel: cache shape {tuple(k_cache.shape)}")
-
-    dev = h0.device
-    f32, bf = torch.float32, torch.bfloat16
-
-    def f(x):
-        return x.to(device=dev, dtype=f32).contiguous()
-
-    h0, cos, sin, bias_w = f(h0), f(cos), f(sin), f(bias_w)
-    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-    nh = torch.empty((B, D), dtype=f32, device=dev)
-    logits = torch.empty((B, n_head), dtype=f32, device=dev)
-    new_k = torch.empty((L, B, nkv, hd), dtype=bf, device=dev)
-    new_v = torch.empty_like(new_k)
-    qkvn = (nq + 2 * nkv) * hd
-    h = torch.empty((B, D), dtype=f32, device=dev)
-    xn = torch.empty((B, D), dtype=bf, device=dev)
-    qkv = torch.empty((B, qkvn), dtype=bf, device=dev)
-    attn = torch.empty((B, nq * hd), dtype=bf, device=dev)
-    gated = torch.empty((B, Fi), dtype=bf, device=dev)
-    part_floats = _KS_MAX * B * max(qkvn, D, 2 * Fi, n_head)
-    part = torch.empty((part_floats,), dtype=f32, device=dev)
-    w = qsb
-    lib = _lib()
-    rc = lib.bb_decode_step(
-        h0.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias_w.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(),
-        w["wqkv"].data_ptr(), w["wo"].data_ptr(), w["w_gu"].data_ptr(),
-        w["w_down"].data_ptr(), w["head"].data_ptr(),
-        w["attn_nw"].data_ptr(), w["mlp_nw"].data_ptr(), w["final_norm"].data_ptr(),
-        nh.data_ptr(), logits.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-        h.data_ptr(), xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), gated.data_ptr(),
-        part.data_ptr(), part_floats,
-        L, B, D, Fi, nq, nkv, hd, W, n_head, float(bcfg.rms_norm_eps),
-        _build.stream_handle(dev),
-    )
-    if rc != 0:
-        raise RuntimeError(f"bb_decode_step launch failed: {lib.bb_error_string(rc).decode()}")
+        raise ValueError(f"bb_decode_step: unsupported device {h0.device} (stage_ns needs the "
+                         "kernel)")
+    out = _launch(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step",
+                  stage_ns, item_ns)
     bb_decode_step.launches += 1
-    return nh, logits[:, :Va], new_k, new_v
+    return out
 
 
 bb_decode_step.launches = 0
@@ -445,38 +385,60 @@ def bb_decode_step_q_reference(
     return nh, logits[:, :config.audio_vocab_size], torch.stack(new_k), torch.stack(new_v)
 
 
-_Q_TAIL = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 10 + [ctypes.c_float, _F]
+# ---------------------------------------------------------------------------
+# The kernels' launch (every tier)
+# ---------------------------------------------------------------------------
+
+
+_F = ctypes.c_void_p
+_TAIL = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 10 + [ctypes.c_float, _F]
+# The C functions of csrc/bb_decode.cu and csrc/bb_decode_q.cu: (argtypes,
+# restype).
+SIGNATURES = {
+    "bb_decode_step": ([_F] * 21 + _TAIL, ctypes.c_int),
+    "bb_scratch_bytes": ([ctypes.c_int] * 8, ctypes.c_longlong),
+    "bb_item_count": ([ctypes.c_int] * 8, ctypes.c_longlong),
+    "bb_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
 _Q_SHAPES = ([ctypes.c_int] * 9, ctypes.c_longlong)
-# The C functions of csrc/bb_decode_q.cu: (argtypes, restype).
 SIGNATURES_Q = {
-    "bb_decode_q_step": ([_F] * 24 + _Q_TAIL, ctypes.c_int),
-    "bb_decode_q4_step": ([_F] * 28 + _Q_TAIL, ctypes.c_int),
+    "bb_decode_q_step": ([_F] * 24 + _TAIL, ctypes.c_int),
+    "bb_decode_q4_step": ([_F] * 28 + _TAIL, ctypes.c_int),
     "bbq_scratch_bytes": _Q_SHAPES,
     "bbq_item_count": _Q_SHAPES,
     "bbq_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
-# Int64 slots a work item takes in the kernel's item trace (the C side
+# Int64 slots a work item takes in the kernels' item trace (the C side
 # refuses a shorter buffer): its stage (numbered as ``stage_ns``), start,
 # end of its waits, four marks inside it (0 where it has none), end.
 TRACE_SLOTS = 8
-# Return codes from this one on are arguments the kernel refuses (shapes, a
-# window too long for its shared memory, a short buffer): csrc/bb_decode_q.cu
-# ``Refused``.
+# Return codes from this one on are arguments the kernels refuse (shapes, a
+# window too long for their shared memory, a short buffer):
+# csrc/bb_step.cuh ``Refused``.
 _REFUSED = 10001
+
+
+def _lib():
+    return _build.load(KERNEL, SIGNATURES)
 
 
 def _lib_q():
     return _build.load(KERNEL_Q, SIGNATURES_Q)
 
 
-# Scratch kept across calls of the same shapes on the same device: one byte
-# buffer the kernel lays out (residual, operands, split partials, per-item
-# flags and tickets), zeroed once here, and the launch epoch.  Flags are
-# stamped with the epoch and tickets re-arm themselves, so nothing is
-# cleared between launches.  Calls on one device are ordered by its stream,
-# which the scratch assumes.
-_SCRATCH_Q: dict = {}
+def _bits(qsb: dict) -> int:
+    """The tier of a bundle: 4 (it carries ``"u"``), 8 (scales) or 16."""
+    return 4 if "u" in qsb else 8 if "s" in qsb else 16
+
+
+# Scratch kept across calls of the same tier and shapes on the same device:
+# one byte buffer the kernel lays out (residual, operands, split partials,
+# per-item flags and tickets), zeroed once here, and the launch epoch.
+# Flags are stamped with the epoch and tickets re-arm themselves, so nothing
+# is cleared between launches.  Calls on one device are ordered by its
+# stream, which the scratch assumes.
+_SCRATCH: dict = {}
 
 
 def stage_count(L: int) -> int:
@@ -486,27 +448,37 @@ def stage_count(L: int) -> int:
     return 5 * L + 4
 
 
-def item_count(qsb: dict, config: CSMConfig, B: int) -> int:
-    """Work items of one int8 / int4 step of bundle ``qsb`` at batch ``B``,
-    as the kernel counts them: an ``item_ns`` trace takes
-    :data:`TRACE_SLOTS` int64 for each."""
+def _shape_args(qsb: dict, config: CSMConfig, B: int):
+    """``(B, D, nq, nkv, hd, F, n_head, L)`` as the C side takes them."""
     bc = config.backbone
-    n = _lib_q().bbq_item_count(B, bc.hidden_size, bc.num_attention_heads,
-                                bc.num_key_value_heads, bc.head_dim, bc.intermediate_size,
-                                qsb["w"]["head"].shape[1], qsb["w"]["wqkv"].shape[0],
-                                4 if "u" in qsb else 8)
+    w = qsb if _bits(qsb) == 16 else qsb["w"]
+    return (B, bc.hidden_size, bc.num_attention_heads, bc.num_key_value_heads, bc.head_dim,
+            bc.intermediate_size, w["head"].shape[1], w["wqkv"].shape[0])
+
+
+def item_count(qsb: dict, config: CSMConfig, B: int) -> int:
+    """Work items of one step of bundle ``qsb`` (any tier) at batch ``B``, as
+    the kernel counts them: an ``item_ns`` trace takes :data:`TRACE_SLOTS`
+    int64 for each."""
+    bits = _bits(qsb)
+    lib = _lib() if bits == 16 else _lib_q()
+    if bits == 16:
+        n, err = lib.bb_item_count(*_shape_args(qsb, config, B)), lib.bb_error_string
+    else:
+        n, err = lib.bbq_item_count(*_shape_args(qsb, config, B), bits), lib.bbq_error_string
     if n < 0:
-        raise ValueError(f"item_count: {_lib_q().bbq_error_string(-n).decode()}")
+        raise ValueError(f"item_count: {err(-n).decode()}")
     return n
 
 
-def _check_q_shapes(name, int4, B, D, Fi, nq, nkv, hd, n_head):
-    """ValueError naming the limit the kernel does not take (the window's
-    limit, which depends on the card's shared memory, comes back from the
-    launch)."""
-    kr = 256 if int4 else 128
-    if not 1 <= B <= MAX_VALIDATED_B:
-        raise ValueError(f"{name} kernel: B={B} outside 1..{MAX_VALIDATED_B}")
+def _check_shapes(name, bits, B, D, Fi, nq, nkv, hd, n_head):
+    """ValueError naming the limit the tier's kernel does not take (the
+    window's limit, which depends on the card's shared memory, comes back
+    from the launch)."""
+    b_max = MAX_VALIDATED_B_EXACT if bits == 16 else MAX_VALIDATED_B
+    kr = {16: 64, 8: 128, 4: 256}[bits]  # K rows of a 16 KB weight chunk
+    if not 1 <= B <= b_max:
+        raise ValueError(f"{name} kernel: unsupported B={B}, outside 1..{b_max}")
     if nkv <= 0 or nq % nkv or nq // nkv > 8:
         raise ValueError(f"{name} kernel: heads {nq}/{nkv} (a GQA group of at most 8)")
     if hd not in (16, 32, 64, 128):
@@ -521,29 +493,26 @@ def _check_q_shapes(name, int4, B, D, Fi, nq, nkv, hd, n_head):
         raise ValueError(f"{name} kernel: B={B} x D/128={D // 128} tile sums of squares > 1024")
 
 
-def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str, stage_ns=None,
-              item_ns=None):
-    """Launch the int8 (``"u"`` absent) or int4 step of ``csrc/bb_decode_q.cu``
-    on CUDA tensors; raises on what the kernel does not take.  ``stage_ns``
-    (int64, :func:`stage_count` elements, on the device) receives block 0's
-    trace; ``item_ns`` (int64, :data:`TRACE_SLOTS` per item of
-    :func:`item_count`) each work item's stage, start, end of its waits,
-    four marks inside it and end."""
-    int4 = "u" in qsb
+def _launch(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str, stage_ns=None,
+            item_ns=None):
+    """Launch the step of the bundle's tier (``csrc/bb_decode.cu`` for
+    ``bits=16``, ``csrc/bb_decode_q.cu`` for 8 and 4) on CUDA tensors; raises
+    on what the kernel does not take.  ``stage_ns`` (int64,
+    :func:`stage_count` elements, on the device) receives block 0's trace;
+    ``item_ns`` (int64, :data:`TRACE_SLOTS` per item of :func:`item_count`)
+    each work item's stage, start, end of its waits, four marks inside it and
+    end."""
+    bits = _bits(qsb)
     bcfg = config.backbone
-    w, s = qsb["w"], qsb["s"]
-    L = w["wqkv"].shape[0]
-    D, Fi = bcfg.hidden_size, bcfg.intermediate_size
-    nq, nkv, hd = bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim
-    B, W = h0.shape[0], k_cache.shape[2]
-    n_head = w["head"].shape[1]
-    _check_q_shapes(name, int4, B, D, Fi, nq, nkv, hd, n_head)
+    B, D, nq, nkv, hd, Fi, n_head, L = _shape_args(qsb, config, h0.shape[0])
+    W = k_cache.shape[2]
+    _check_shapes(name, bits, B, D, Fi, nq, nkv, hd, n_head)
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise ValueError(f"{name} kernel takes a bf16 KV cache")
     if tuple(k_cache.shape) != (L, B, W, nkv, hd) or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name} kernel: cache shape {tuple(k_cache.shape)}")
-    if int4 and tuple(w["wqkv"].shape[1:]) != (D // 2, (nq + 2 * nkv) * hd):
-        raise ValueError(f"{name} kernel: packed wqkv shape {tuple(w['wqkv'].shape)}")
+    if bits == 4 and tuple(qsb["w"]["wqkv"].shape[1:]) != (D // 2, (nq + 2 * nkv) * hd):
+        raise ValueError(f"{name} kernel: packed wqkv shape {tuple(qsb['w']['wqkv'].shape)}")
     dev = h0.device
     if stage_ns is not None and (stage_ns.device != dev or stage_ns.dtype != torch.int64
                                  or stage_ns.numel() < stage_count(L)):
@@ -559,14 +528,16 @@ def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str, st
 
     h0, cos, sin, bias_w = f(h0), f(cos), f(sin), f(bias_w)
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-    lib = _lib_q()
-    key = (dev, int4, L, B, D, Fi, nq, nkv, hd, n_head)
-    sc = _SCRATCH_Q.get(key)
+    lib = _lib() if bits == 16 else _lib_q()
+    err = lib.bb_error_string if bits == 16 else lib.bbq_error_string
+    key = (dev, bits, L, B, D, Fi, nq, nkv, hd, n_head)
+    sc = _SCRATCH.get(key)
     if sc is None:
-        n = lib.bbq_scratch_bytes(B, D, nq, nkv, hd, Fi, n_head, L, 4 if int4 else 8)
+        shapes = (B, D, nq, nkv, hd, Fi, n_head, L)
+        n = lib.bb_scratch_bytes(*shapes) if bits == 16 else lib.bbq_scratch_bytes(*shapes, bits)
         if n < 0:
-            raise RuntimeError(f"{name}: {lib.bbq_error_string(-n).decode()}")
-        sc = _SCRATCH_Q[key] = [torch.zeros((n,), dtype=torch.uint8, device=dev), 0]
+            raise RuntimeError(f"{name}: {err(-n).decode()}")
+        sc = _SCRATCH[key] = [torch.zeros((n,), dtype=torch.uint8, device=dev), 0]
     sc[1] = (sc[1] + 1) & 0xFFFFFFFF
     epoch = sc[1] - (1 << 32) if sc[1] >= 1 << 31 else sc[1]
     nh = torch.empty((B, D), dtype=f32, device=dev)
@@ -575,20 +546,25 @@ def _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str, st
     new_v = torch.empty_like(new_k)
     fams = ("wqkv", "wo", "w_gu", "w_down")
     ptrs = [h0.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias_w.data_ptr(),
-            k_cache.data_ptr(), v_cache.data_ptr(), *(w[k].data_ptr() for k in (*fams, "head")),
-            *(s[k].data_ptr() for k in (*fams, "head"))]
-    if int4:
-        ptrs += [qsb["u"][k].data_ptr() for k in fams]
+            k_cache.data_ptr(), v_cache.data_ptr()]
+    if bits == 16:
+        ptrs += [qsb[k].data_ptr() for k in (*fams, "head", "attn_nw", "mlp_nw")]
+    else:
+        w, s = qsb["w"], qsb["s"]
+        ptrs += [w[k].data_ptr() for k in (*fams, "head")] + [s[k].data_ptr() for k in (*fams, "head")]
+        if bits == 4:
+            ptrs += [qsb["u"][k].data_ptr() for k in fams]
     ptrs += [qsb["final_norm"].data_ptr(), nh.data_ptr(), logits.data_ptr(), new_k.data_ptr(),
              new_v.data_ptr(), sc[0].data_ptr(), None if stage_ns is None else stage_ns.data_ptr(),
              None if item_ns is None else item_ns.data_ptr()]
-    fn = lib.bb_decode_q4_step if int4 else lib.bb_decode_q_step
+    fn = (lib.bb_decode_step if bits == 16 else lib.bb_decode_q4_step if bits == 4
+          else lib.bb_decode_q_step)
     rc = fn(*ptrs, sc[0].numel(), 0 if item_ns is None else item_ns.numel(), L, B, D, Fi, nq,
             nkv, hd, W, n_head, epoch, float(bcfg.rms_norm_eps), _build.stream_handle(dev))
     if rc >= _REFUSED:
-        raise ValueError(f"{name} kernel (B={B}, W={W}): {lib.bbq_error_string(rc).decode()}")
+        raise ValueError(f"{name} kernel (B={B}, W={W}): {err(rc).decode()}")
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.bbq_error_string(rc).decode()}")
+        raise RuntimeError(f"{name} launch failed: {err(rc).decode()}")
     return nh, logits[:, :config.audio_vocab_size], new_k, new_v
 
 
@@ -607,7 +583,7 @@ def bb_decode_step_q(
     """One int8 backbone decode step.  CPU tensors take the plain version;
     CUDA tensors launch ``csrc/bb_decode_q.cu``, one persistent kernel (and
     raise on what it does not take); ``stage_ns`` and ``item_ns`` receive its
-    traces (see :func:`_launch_q`).  ``bb_decode_step_q.launches`` counts kernel
+    traces (see :func:`_launch`).  ``bb_decode_step_q.launches`` counts kernel
     launches."""
     if "u" in qsb:
         raise ValueError("bb_decode_step_q takes an int8 bundle; int4 goes to bb_decode_step_q4")
@@ -616,8 +592,8 @@ def bb_decode_step_q(
     if h0.device.type != "cuda":
         raise ValueError(f"bb_decode_step_q: unsupported device {h0.device} (stage_ns needs the "
                          "kernel)")
-    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q",
-                    stage_ns, item_ns)
+    out = _launch(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q",
+                  stage_ns, item_ns)
     bb_decode_step_q.launches += 1
     return out
 
@@ -650,8 +626,8 @@ def bb_decode_step_q4(
     if h0.device.type != "cuda":
         raise ValueError(f"bb_decode_step_q4: unsupported device {h0.device} (stage_ns needs the "
                          "kernel)")
-    out = _launch_q(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q4",
-                    stage_ns, item_ns)
+    out = _launch(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, "bb_decode_step_q4",
+                  stage_ns, item_ns)
     bb_decode_step_q4.launches += 1
     return out
 

@@ -1,7 +1,7 @@
-"""The kernels' build cache and the int8 / int4 step wrapper's shape checks
+"""The kernels' build cache and the backbone step wrapper's shape checks
 and constants, on the CPU (no ``nvcc`` needed): a library is named by a
-hash of its source and of every shared header, so an edit of
-``csrc/sync.cuh`` or ``csrc/w8a16.cuh`` rebuilds each source that may
+hash of its source and of every shared header, so an edit of a header
+(``csrc/bb_step.cuh``, ``csrc/sync.cuh``, ...) rebuilds each source that may
 include it, and an edit of one source rebuilds that source alone.
 """
 
@@ -15,7 +15,7 @@ import torch
 from csm_tpu_torch import CSMConfig
 from csm_tpu_torch.ops import _build, bb_kernel
 
-SOURCES = ("bb_decode_q", "fused_decoder", "flash_fwd")
+SOURCES = ("bb_decode", "bb_decode_q", "fused_decoder", "flash_fwd")
 
 
 @pytest.fixture
@@ -27,7 +27,7 @@ def csrc_copy(tmp_path, monkeypatch):
     return dst
 
 
-@pytest.mark.parametrize("header", ["sync.cuh", "w8a16.cuh", "hopper.cuh"])
+@pytest.mark.parametrize("header", ["sync.cuh", "w8a16.cuh", "hopper.cuh", "bb_step.cuh"])
 def test_a_header_edit_renames_every_library(csrc_copy, header):
     before = {n: _build._target(n) for n in SOURCES}
     with open(os.path.join(csrc_copy, header), "a") as f:
@@ -44,15 +44,25 @@ def test_a_source_edit_renames_its_library_alone(csrc_copy):
     assert [n for n in SOURCES if before[n] != after[n]] == ["bb_decode_q"]
 
 
+def _with_headers(source: str) -> str:
+    """A source's text and that of the repository headers it includes."""
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = f.read()
+    for header in re.findall(r'#include "(\w+\.cuh)"', text):
+        text += _with_headers(header)
+    return text
+
+
+@pytest.mark.parametrize("source", ["bb_decode.cu", "bb_decode_q.cu"])
 @pytest.mark.parametrize("python,c", [
     ("TRACE_SLOTS", r"constexpr int TRACE_SLOTS = (\d+);"),
     ("_REFUSED", r"REFUSED_SHAPES = (\d+),"),
 ])
-def test_the_wrapper_constants_match_the_kernel_source(python, c):
+def test_the_wrapper_constants_match_the_kernel_source(python, c, source):
     """The item trace's int64 per item and the first refusal code are read
-    the same by the wrapper and by csrc/bb_decode_q.cu."""
-    with open(os.path.join(_build.CSRC, "bb_decode_q.cu")) as f:
-        found = re.findall(c, f.read())
+    the same by the wrapper and by each backbone step's source (through the
+    header it includes)."""
+    found = re.findall(c, _with_headers(source))
     assert found == [str(getattr(bb_kernel, python))]
 
 
@@ -61,18 +71,44 @@ def test_the_wrapper_constants_match_the_kernel_source(python, c):
     (dict(nq=32, nkv=3), "GQA"),
     (dict(hd=48), "head_dim"),
     (dict(n_head=2051), "multiples of 128"),
-    (dict(int4=True, D=2176), "multiples of 256"),
+    (dict(bits=4, D=2176), "multiples of 256"),
 ])
 def test_q_shape_checks_name_the_limit(kw, match):
-    args = dict(int4=False, B=1, D=2048, Fi=8192, nq=32, nkv=8, hd=64, n_head=2176)
-    bb_kernel._check_q_shapes("bb_decode_step_q", **args)  # CSM-1B is taken
+    args = dict(bits=8, B=1, D=2048, Fi=8192, nq=32, nkv=8, hd=64, n_head=2176)
+    bb_kernel._check_shapes("bb_decode_step_q", **args)  # CSM-1B is taken
     args.update(kw)
     with pytest.raises(ValueError, match=match):
-        bb_kernel._check_q_shapes("bb_decode_step_q", **args)
+        bb_kernel._check_shapes("bb_decode_step_q", **args)
 
 
-def test_stage_trace_needs_the_kernel():
+@pytest.mark.parametrize("kw,match", [
+    (dict(B=9), "unsupported B=9, outside 1..8"),
+    (dict(B=0), "outside 1..8"),
+    (dict(nq=32, nkv=3), "GQA"),
+    (dict(nq=36, nkv=4), "at most 8"),
+    (dict(hd=48), "head_dim"),
+    (dict(n_head=2051), "multiples of 128"),
+    (dict(Fi=8224), "of 64"),
+    (dict(nq=5, nkv=5, hd=16), "multiples of 64"),
+    (dict(B=8, D=16512), "tile sums of squares"),
+])
+def test_exact_shape_checks_name_the_limit(kw, match):
+    """The exact tier's limits: B <= 8 (one 8-column operand), whole bf16
+    chunks of 64 K rows.  CSM-1B and the small GPU-test config are taken."""
+    bb_kernel._check_shapes("bb_decode_step", 16, B=8, D=256, Fi=512, nq=4, nkv=2, hd=64,
+                            n_head=256)
+    args = dict(B=1, D=2048, Fi=8192, nq=32, nkv=8, hd=64, n_head=2176)
+    bb_kernel._check_shapes("bb_decode_step", 16, **args)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        bb_kernel._check_shapes("bb_decode_step", 16, **args)
+
+
+@pytest.mark.parametrize("wrapper,bundle", [("bb_decode_step_q", {"w": {}, "s": {}}),
+                                            ("bb_decode_step", {})])
+def test_stage_trace_needs_the_kernel(wrapper, bundle):
+    """The int8 and the exact wrapper: a trace asked for on the CPU raises."""
     cfg = CSMConfig.tiny()
     with pytest.raises(ValueError, match="stage_ns"):
-        bb_kernel.bb_decode_step_q({"w": {}, "s": {}}, cfg, torch.zeros((1, 8)), None, None, None,
-                                   None, None, stage_ns=torch.zeros((4,), dtype=torch.int64))
+        getattr(bb_kernel, wrapper)(bundle, cfg, torch.zeros((1, 8)), None, None, None, None,
+                                    None, stage_ns=torch.zeros((4,), dtype=torch.int64))

@@ -85,16 +85,17 @@ def test_flash_kernel_matches_plain_version(cuda, nq, nkv, dtype, hd, tol):
 
 
 @pytest.mark.parametrize("B", [1, 3, 8])
-def test_bb_kernel_matches_plain_version(cuda, B):
+@pytest.mark.parametrize("W", [40, 1, 37])
+def test_bb_kernel_matches_plain_version(cuda, B, W):
     """Same rounding points, other fp32 summation order: relative RMS error
     within 1e-2 on every output at two layers (a wrong mask, head or position
     gives 0.1-1; chip_smoke.py holds the kernel to finer limits at full
-    width)."""
+    width), at a window of 40 keys, of one key and a ragged 37; bitwise
+    repeatable, and the same for a stream alone as in its batch."""
     cfg = _config()
     model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda).exact()
     bc = cfg.backbone
     gen = torch.Generator(device=cuda).manual_seed(B)
-    W = 40
     h0 = (0.1 * torch.randn((B, bc.hidden_size), generator=gen, device=cuda)).bfloat16().float()
     cos = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
     sin = torch.randn((B, bc.head_dim), generator=gen, device=cuda)
@@ -112,6 +113,7 @@ def test_bb_kernel_matches_plain_version(cuda, B):
         a, r = a.float(), r.float()
         assert a.shape == r.shape and torch.isfinite(a).all(), name
         assert ((a - r).norm() / r.norm()).item() <= 1e-2, name
+    _bbq_repeat_and_solo(bb_kernel.bb_decode_step, args, out)
 
 
 def _rel_rms(a, r) -> float:
@@ -838,16 +840,15 @@ def _cuda_kernels(fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
 
 
-@pytest.mark.parametrize("B", [1, 32])
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits,B", [(8, 1), (8, 32), (4, 1), (4, 32), (16, 1), (16, 8)])
 def test_bbq_step_is_one_cuda_kernel(cuda, bits, B):
-    """A step is one persistent launch; its stage trace stamps block 0's
-    clock in order through every stage, and its item trace holds every
-    item's stage in list order and its times in order."""
+    """A step of every tier is one persistent launch; its stage trace stamps
+    block 0's clock in order through every stage, and its item trace holds
+    every item's stage in list order and its times in order."""
     cfg = _config()
     model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
     qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=bits)
-    kernel = bb_kernel.bb_decode_step_q4 if bits == 4 else bb_kernel.bb_decode_step_q
+    kernel = bb_kernel.bb_decode_step
     args = (qsb, cfg, *_bbq_inputs(cfg, B, 40, B, cuda))
     kernel(*args)
     # chip_smoke's bound, over 4 steps: the profiler has been seen to drop a
@@ -867,27 +868,33 @@ def test_bbq_step_is_one_cuda_kernel(cuda, bits, B):
                 and (rows[:, S - 1] >= rows[:, 2]).all())
 
 
-def test_bbq_kernels_run_on_the_tensor_cores(cuda):
-    """Both instantiations of the persistent step (int8, int4) hold HMMA."""
+@pytest.mark.parametrize("source,name,n", [("bb_decode_q", "bbq_step_kernel", 2),
+                                           ("bb_decode", "bb_step_kernel", 1)])
+def test_bbq_kernels_run_on_the_tensor_cores(cuda, source, name, n):
+    """Every instantiation of the persistent steps (int8 and int4; exact)
+    holds HMMA (mma.sync)."""
     from csm_tpu_torch.ops import _build
 
-    sass = _build.sass_by_function(["bb_decode_q"])
-    fns = {f: s for f, s in sass.items() if "bbq_step_kernel" in f}
-    assert len(fns) == 2 and all("HMMA" in s for s in fns.values()), sorted(fns)
+    sass = _build.sass_by_function([source])
+    fns = {f: s for f, s in sass.items() if name in f}
+    assert len(fns) == n and all("HMMA" in s for s in fns.values()), sorted(sass)
 
 
-def test_bbq_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+@pytest.mark.parametrize("bits,b_max", [(8, bb_kernel.MAX_VALIDATED_B),
+                                        (16, bb_kernel.MAX_VALIDATED_B_EXACT)])
+def test_bbq_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bits, b_max):
     cfg = _config()
     model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
-    qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=8)
-    args = _bbq_inputs(cfg, bb_kernel.MAX_VALIDATED_B + 1, 8, 0, cuda)
-    with pytest.raises(ValueError, match="outside"):
-        bb_kernel.bb_decode_step_q(qsb, cfg, *args)
+    qsb = bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=bits)
+    step = bb_kernel.bb_decode_step
+    args = _bbq_inputs(cfg, b_max + 1, 8, 0, cuda)
+    with pytest.raises(ValueError, match=f"B={b_max + 1}, outside 1..{b_max}"):
+        step(qsb, cfg, *args)
     h0, cos, sin, bias, kc, vc = _bbq_inputs(cfg, 1, 8, 0, cuda)
     with pytest.raises(ValueError, match="bf16 KV cache"):
-        bb_kernel.bb_decode_step_q(qsb, cfg, h0, cos, sin, bias, kc.float(), vc.float())
+        step(qsb, cfg, h0, cos, sin, bias, kc.float(), vc.float())
     short = torch.zeros((bb_kernel.TRACE_SLOTS,), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="item trace"):
-        bb_kernel.bb_decode_step_q(qsb, cfg, h0, cos, sin, bias, kc, vc, item_ns=short)
+        step(qsb, cfg, h0, cos, sin, bias, kc, vc, item_ns=short)
     with pytest.raises(ValueError, match="window"):
-        bb_kernel.bb_decode_step_q(qsb, cfg, *_bbq_inputs(cfg, 1, 16384, 0, cuda))
+        step(qsb, cfg, *_bbq_inputs(cfg, 1, 16384, 0, cuda))

@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
-"""Profile one int8 / int4 backbone decode step (K1q-8 / K1q-4) on the card.
+"""Profile one backbone decode step (K1 exact, K1q-8, K1q-4) on the card.
 
     python3 tools/bbq_profile.py [--repo DIR] [--label NAME] [--items]
+    python3 tools/bbq_profile.py --compare P1,P2:C1,C2
 
-Builds random CSM-1B weights (seed 0) in bf16, the ``bits=8`` and ``bits=4``
-bundles, and at B = 1, 8 and 32 (W = 256, ~55 % of the window usable)
-times the step with CUDA events and breaks one step down under
-``torch.profiler``: device ms and launches by kernel name, the step's span
-from its first kernel's start to its last kernel's end, and the idle gaps
-inside that span.  ``--repo`` imports ``csm_tpu_torch`` from another
-checkout (a parent commit unpacked beside this one), so two versions are
-read in one call.  ``--items`` also reads the persistent kernel's per-item
-trace.  Prints one JSON object per reading; the whole record goes to
-``chiprun_out/bbq_profile_<label>.json``.
+Builds random CSM-1B weights (seed 0) in bf16, the ``bits=16``, ``bits=8``
+and ``bits=4`` bundles, and at B = 1, 8 and 32 (W = 256, ~55 % of the
+window usable; the exact tier takes B <= 8) times the step with CUDA events
+and breaks one step down under ``torch.profiler``: device ms and launches
+by kernel name, the step's span from its first kernel's start to its last
+kernel's end, and the idle gaps inside that span.  Each reading carries a
+digest of the step's outputs.  ``--repo`` imports ``csm_tpu_torch`` from
+another checkout (a parent commit unpacked beside this one), so two
+versions are read in one call.  ``--items`` also reads the persistent
+kernel's per-item trace.  Prints one JSON object per reading; the whole
+record goes to ``chiprun_out/bbq_profile_<label>.json``.
+
+``--compare`` reads the records of labels P1, P2 (one version, e.g. the
+parent, run first and last) and C1, C2 (the other, run between them) and
+prints, for each tier and B, both mean times, their ratio and whether the
+outputs are bitwise equal; it exits non-zero if a K1q-8 or K1q-4 reading
+differs in its outputs or by more than 3 % in time.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -33,7 +42,7 @@ def item_breakdown(bb_kernel, cfg, qsb, bits: int, step, B: int) -> dict:
 
     import numpy as np
 
-    L = qsb["w"]["wqkv"].shape[0]
+    L = cfg.backbone.num_hidden_layers
     S = bb_kernel.TRACE_SLOTS
     buf = torch.zeros((S * bb_kernel.item_count(qsb, cfg, B),), dtype=torch.int64, device="cuda")
     step(item_ns=buf)
@@ -78,6 +87,46 @@ def item_breakdown(bb_kernel, cfg, qsb, bits: int, step, B: int) -> dict:
     return out
 
 
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chiprun_out")
+# K1q may move this much in time against another build in the same call.
+K1Q_TIME_TOL = 0.03
+
+
+def compare(spec: str) -> int:
+    """``--compare P1,P2:C1,C2``: see the module's docstring."""
+    sides = [side.split(",") for side in spec.split(":")]
+
+    def load(label):
+        with open(os.path.join(OUT, f"bbq_profile_{label}.json")) as f:
+            return {(r["bits"], r["B"]): r for r in json.load(f)}
+
+    (p, c) = ([load(x) for x in labels] for labels in sides)
+    bad = []
+    for key in sorted(set.intersection(*(set(r) for r in p + c))):
+        pm = sum(r[key]["ms"] for r in p) / len(p)
+        cm = sum(r[key]["ms"] for r in c) / len(c)
+        same = len({r[key]["digest"] for r in p + c}) == 1
+        bits, B = key
+        print(f"bits={bits} B={B}: {sides[0]} {pm:.4f} ms, {sides[1]} {cm:.4f} ms, ratio "
+              f"{cm / pm:.4f}, outputs bitwise equal {same}", flush=True)
+        if bits != 16 and (not same or abs(cm / pm - 1) > K1Q_TIME_TOL):
+            bad.append(key)
+    if bad:
+        print(f"K1q readings that differ in outputs or by > {K1Q_TIME_TOL:.0%} in time: {bad}")
+        return 1
+    return 0
+
+
+def digest(out) -> str:
+    """sha256 of a step's outputs' bytes."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -86,7 +135,10 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--items", action="store_true",
                     help="also read the kernel's per-item trace (this checkout only)")
+    ap.add_argument("--compare", help="P1,P2:C1,C2: compare the records of these labels")
     a = ap.parse_args()
+    if a.compare:
+        return compare(a.compare)
     import torch
 
     if not torch.cuda.is_available():
@@ -105,8 +157,8 @@ def main() -> int:
     cfg = CSMConfig()
     bc = cfg.backbone
     model = CSMModel(cfg, dtype=torch.bfloat16, seed=0)
-    bundles = {8: bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=8),
-               4: bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=4)}
+    bundles = {b: bb_kernel.prepare_streamed_backbone(model.params, cfg, bits=b)
+               for b in (16, 8, 4)}
     del model
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -123,11 +175,15 @@ def main() -> int:
         kc = torch.randn((L, B, W, nkv, hd), generator=gen, device=dev).bfloat16()
         vc = torch.randn((L, B, W, nkv, hd), generator=gen, device=dev).bfloat16()
         for bits, qsb in bundles.items():
-            fn = bb_kernel.bb_decode_step_q4 if bits == 4 else bb_kernel.bb_decode_step_q
+            if bits == 16 and B > bb_kernel.MAX_VALIDATED_B_EXACT:
+                continue
+            fn = {16: bb_kernel.bb_decode_step, 8: bb_kernel.bb_decode_step_q,
+                  4: bb_kernel.bb_decode_step_q4}[bits]
 
             def step(**kw):
                 return fn(qsb, cfg, h0, cos, sin, bias, kc, vc, **kw)
 
+            out_digest = digest(step())
             for _ in range(3):
                 step()
             torch.cuda.synchronize()
@@ -151,7 +207,7 @@ def main() -> int:
             ev.sort(key=lambda e: e.time_range.start)
             span = (max(e.time_range.end for e in ev) - ev[0].time_range.start) / 1e3 if ev else 0.0
             busy = sum(t for _, t in by.values())
-            rec = dict(label=a.label, bits=bits, B=B, W=W, ms=ms,
+            rec = dict(label=a.label, bits=bits, B=B, W=W, ms=ms, digest=out_digest,
                        kernels_per_step=len(ev), span_ms=span, busy_ms=busy,
                        gaps_ms=span - busy,
                        by_kernel={k: dict(launches=n, ms=t) for k, (n, t) in
@@ -161,9 +217,8 @@ def main() -> int:
                 rec["items"] = item_breakdown(bb_kernel, cfg, qsb, bits, step, B)
             records.append(rec)
             print(json.dumps(rec), flush=True)
-    out = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"bbq_profile_{a.label}.json"), "w") as f:
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, f"bbq_profile_{a.label}.json"), "w") as f:
         json.dump(records, f, indent=1)
     return 0
 
