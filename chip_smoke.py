@@ -92,9 +92,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    and grad norm, the first step's gradient norm of every parameter (a
    layer at a time), with a lost reduce-scatter of dK / dV as the control
    that must break that gate; parameters bitwise equal across ranks after
-   every step, launches, ms and peak memory per rank.
+   every step, launches, ms and peak memory per rank;
+14. (run after phase 8) fine-tuning from files: four clips written as WAV
+   (48 kHz stereo 16-bit by the port's ``save_wav``, 44.1 kHz mono 24-bit
+   and 16 kHz 8-bit unsigned by Python's ``wave``, 24 kHz mono), a JSONL of
+   four two-message conversations with one clip that does not exist, and
+   random full-width Mimi weights (seed 0) in the HF layout named by
+   ``CSM_TPU_MIMI_PATH``; the native audio library built and available,
+   each clip read back at its rate and channels and resampled to 24 kHz at
+   the predicted length; then ``csm_tpu_torch.train.cli.main`` in-process at
+   CSM-1B width (bf16, 2 epochs, accumulation 2, a char-level stand-in for
+   the Llama-3.2 tokenizer): the optimizer steps the arguments imply, finite
+   losses, K3 / K5a / K5b launched on every step, Mimi encoding in the
+   batch-prefetch thread on the card without autograd, the missing clip
+   warned of, every audio span ending in the zero EOS frame with codes in
+   [0, 2048), the card's Mimi codes against the CPU encode of the same
+   clips (with a one-sample-late control that must break the gate), the
+   saved model reloading bitwise equal to the trainer's parameters, and
+   greedy generation of 8 frames decoded, written and read back.
 
-Phases 7-10, 12 and 13 print their seconds.
+Phases 7-10 and 12-14 print their seconds.
 
 The full record of the run goes to ``chiprun_out/chip_smoke.json``.
 
@@ -1851,6 +1868,427 @@ def sharpened_agreement(cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: fine-tuning from files
+# ---------------------------------------------------------------------------
+
+# The clips: (file, sample rate, channels, writer, seconds); "save_wav" is
+# the port's 16-bit writer, an int the sample width written by Python's wave.
+FT_CLIPS = (("clip_48k_stereo.wav", 48000, 2, "save_wav", 2.3),
+            ("clip_44k_24bit.wav", 44100, 1, 3, 3.1),
+            ("clip_24k.wav", 24000, 1, "save_wav", 4.7),
+            ("clip_16k_u8.wav", 16000, 1, 1, 5.9))
+FT_TEXTS = (("Did the parcel come this morning?", "It did, just before nine."),
+            ("Shall we take the early train?", "Only if you bring the coffee."),
+            ("How was the concert last night?", "Loud, and far too short."),
+            ("What are you reading these days?", "An old book about lighthouses."))
+FT_EPOCHS, FT_ACCUM = 2, 2
+FT_ARGS = ("--bf16", "--num_train_epochs", str(FT_EPOCHS), "--per_device_train_batch_size", "1",
+           "--gradient_accumulation_steps", str(FT_ACCUM), "--save_strategy", "no",
+           "--logging_steps", "1", "--seed", "0")
+FT_GEN_FRAMES = 8
+# Mimi codes of the card's encode against the port's CPU encode of the same
+# clips and weights: the least share of equal codes over the 32 codebooks,
+# pooled over the four clips' 201 frames.  Read 1.0 in every codebook of
+# every clip on an H100 (fp32, TF32 off); the limit leaves room for ~6
+# frames flipped by near ties in one codebook.  The control (the CPU encode
+# of each clip one sample later) read 0.41-0.97 per codebook and clip, so it
+# must fall below.
+FT_CODE_SHARE = 0.97
+
+
+class CharTokenizer:
+    """A char-level stand-in for the Llama-3.2 tokenizer, whose files are not
+    in the repository (and the card host may lack ``transformers``): BOS, an
+    id a character, EOS, at the published BOS / EOS ids."""
+
+    bos_token_id, eos_token_id = 128000, 128001
+
+    def encode(self, text, add_special_tokens=True):
+        core = [10 + (ord(c) % 80) for c in text]
+        return [self.bos_token_id, *core, self.eos_token_id] if add_special_tokens else core
+
+
+def mimi_hf_state_dict(cfg, seed: int) -> dict:
+    """Random Mimi weights as numpy arrays in the HF ``MimiModel`` key layout
+    (N(0, 0.02), codebook usage uniform in [0, 3) with two dead entries)."""
+    import numpy as np
+
+    from csm_tpu_torch.codec import mimi
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def r(*shape):
+        return 0.02 * rng.standard_normal(shape, dtype=np.float32)
+
+    for prefix, plan in (("encoder", mimi.encoder_plan(cfg)), ("decoder", mimi.decoder_plan(cfg))):
+        for i, item in enumerate(plan):
+            if item[0] == "conv":
+                s = item[1]
+                shape = ((s.in_ch, s.out_ch // s.groups, s.kernel) if s.transposed
+                         else (s.out_ch, s.in_ch // s.groups, s.kernel))
+                sd[f"{prefix}.layers.{i}.conv.weight"] = r(*shape)
+                sd[f"{prefix}.layers.{i}.conv.bias"] = r(s.out_ch)
+            elif item[0] == "resnet":
+                for bi, s in zip((1, 3), item[1]):
+                    sd[f"{prefix}.layers.{i}.block.{bi}.conv.weight"] = r(s.out_ch, s.in_ch,
+                                                                          s.kernel)
+                    sd[f"{prefix}.layers.{i}.block.{bi}.conv.bias"] = r(s.out_ch)
+    H, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    for prefix in ("encoder_transformer", "decoder_transformer"):
+        for i in range(cfg.num_hidden_layers):
+            base = f"{prefix}.layers.{i}"
+            for n, shape in (("self_attn.q_proj", (cfg.num_attention_heads * hd, H)),
+                             ("self_attn.k_proj", (cfg.num_key_value_heads * hd, H)),
+                             ("self_attn.v_proj", (cfg.num_key_value_heads * hd, H)),
+                             ("self_attn.o_proj", (H, cfg.num_attention_heads * hd)),
+                             ("mlp.fc1", (I, H)), ("mlp.fc2", (H, I))):
+                sd[f"{base}.{n}.weight"] = r(*shape)
+            for n in ("input_layernorm.weight", "input_layernorm.bias",
+                      "post_attention_layernorm.weight", "post_attention_layernorm.bias",
+                      "self_attn_layer_scale.scale", "mlp_layer_scale.scale"):
+                sd[f"{base}.{n}"] = r(H)
+    sd["downsample.conv.weight"] = r(H, H, mimi.downsample_spec(cfg).kernel)
+    up = mimi.upsample_spec(cfg)
+    sd["upsample.conv.weight"] = r(H, H // up.groups, up.kernel)
+    for name, n in (("semantic", cfg.num_semantic_quantizers),
+                    ("acoustic", cfg.num_quantizers - cfg.num_semantic_quantizers)):
+        base = f"quantizer.{name}_residual_vector_quantizer"
+        sd[f"{base}.input_proj.weight"] = r(cfg.codebook_dim, H, 1)
+        sd[f"{base}.output_proj.weight"] = r(H, cfg.codebook_dim, 1)
+        for i in range(n):
+            sd[f"{base}.layers.{i}.codebook.embed_sum"] = r(cfg.codebook_size, cfg.codebook_dim)
+            usage = 3 * rng.random(cfg.codebook_size, dtype=np.float32)
+            usage[:2] = 0.0
+            sd[f"{base}.layers.{i}.codebook.cluster_usage"] = usage
+    return sd
+
+
+def _speechlike(n: int, rate: int, ch: int, seed: int):
+    """``[ch, n]`` float32 in [-1, 1]: a gliding two-tone voice with noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / rate
+    f0 = 140 + 40 * np.sin(2 * np.pi * 0.7 * t)
+    voice = 0.25 * np.sin(2 * np.pi * np.cumsum(f0) / rate) + 0.1 * np.sin(2 * np.pi * 660 * t)
+    x = voice[None] + 0.03 * rng.standard_normal((ch, n))
+    return np.clip(x, -0.99, 0.99).astype(np.float32)
+
+
+def _write_wav_pcm(path: str, wave, rate: int, width: int) -> None:
+    """``wave [ch, n]`` through Python's ``wave``: 8-bit unsigned or 24-bit."""
+    import wave as pywave
+
+    import numpy as np
+
+    inter = wave.T.reshape(-1)
+    if width == 1:
+        raw = np.round(inter * 127 + 128).astype(np.uint8).tobytes()
+    else:
+        u = np.round(inter * (2 ** 23 - 1)).astype(np.int64) & 0xFFFFFF
+        raw = np.stack([u & 0xFF, (u >> 8) & 0xFF, u >> 16], -1).astype(np.uint8).tobytes()
+    with pywave.open(path, "wb") as w:
+        w.setnchannels(wave.shape[0])
+        w.setsampwidth(width)
+        w.setframerate(rate)
+        w.writeframes(raw)
+
+
+def write_finetune_files(d: str) -> dict:
+    """The clips, the JSONL (four two-message conversations, the fourth with
+    a third message whose clip does not exist) and random full-width Mimi
+    weights in the HF layout; each clip read back at its rate and channel
+    count and resampled to 24 kHz at the length the native resampler
+    predicts."""
+    from csm_tpu_torch import native
+    from csm_tpu_torch.checkpoint.safetensors_io import save_file
+    from csm_tpu_torch.codec import MimiCodecConfig
+    from csm_tpu_torch.data.audio_io import load_audio, load_audio_mono, save_wav
+
+    t0 = time.perf_counter()
+    clips = []
+    for i, (name, rate, ch, writer, seconds) in enumerate(FT_CLIPS):
+        path = os.path.join(d, name)
+        n = int(seconds * rate)
+        wave = _speechlike(n, rate, ch, seed=i)
+        if writer == "save_wav":
+            save_wav(path, wave, rate)
+        else:
+            _write_wav_pcm(path, wave, rate, writer)
+        back, got_rate = load_audio(path)
+        mono = load_audio_mono(path, 24000)
+        want_len = native.resample_len(n, rate, 24000) if rate != 24000 else n
+        clips.append(dict(path=path, rate=rate, channels=ch, samples=n, read_rate=got_rate,
+                          read_shape=list(back.shape), mono_24k=len(mono), want_24k=want_len))
+        check(got_rate == rate and back.shape == (ch, n) and len(mono) == want_len,
+              f"finetune: {name} read back at {got_rate} Hz as {back.shape}, resampled to "
+              f"{len(mono)} samples (want {rate} Hz, ({ch}, {n}), {want_len})")
+    missing = os.path.join(d, "not_recorded.wav")
+    with open(os.path.join(d, "train.jsonl"), "w") as f:
+        for i, ((q, a), clip) in enumerate(zip(FT_TEXTS, clips)):
+            messages = [
+                {"role": "speaker_0", "content": [{"type": "text", "text": q}]},
+                {"role": "speaker_1", "content": [{"type": "text", "text": a},
+                                                  {"type": "audio", "url": clip["path"]}]},
+            ]
+            if i == len(FT_TEXTS) - 1:
+                messages.append({"role": "speaker_0", "content": [
+                    {"type": "text", "text": "And this one?"},
+                    {"type": "audio", "url": missing}]})
+            f.write(json.dumps({"messages": messages}) + "\n")
+    io_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mimi_path = os.path.join(d, "mimi.safetensors")
+    save_file(mimi_hf_state_dict(MimiCodecConfig(), seed=0), mimi_path)
+    return dict(clips=clips, missing=missing, jsonl=os.path.join(d, "train.jsonl"),
+                mimi_path=mimi_path, audio_io_s=io_s, mimi_write_s=time.perf_counter() - t0)
+
+
+def _audio_spans(mask):
+    """``[start, end)`` of each run of audio frames (codebook columns live)."""
+    import numpy as np
+
+    audio = mask[:, 0] == 1
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], audio.astype(int), [0]])))
+    return list(zip(edges[::2], edges[1::2]))
+
+
+def _code_shares(got, ref):
+    """The share of equal codes per codebook, ``[32]``, of ``[32, frames]``
+    codes."""
+    import numpy as np
+
+    return [float(x) for x in (np.asarray(got) == np.asarray(ref)).mean(axis=1)]
+
+
+def finetune_cli() -> dict:
+    """Phase 14: ``python -m csm_tpu_torch.train``'s ``main`` in-process on a
+    JSONL of four conversations with clips in four WAV formats, at CSM-1B
+    width (no ``--config_path``), bf16, 2 epochs, accumulation 2; then greedy
+    generation from a dataset prompt, Mimi decode, ``save_wav`` and
+    ``load_audio``."""
+    import logging
+    import threading
+
+    import numpy as np
+    import torch
+
+    from csm_tpu_torch import CSMModel, native
+    from csm_tpu_torch.codec import load_mimi, mimi
+    from csm_tpu_torch.data.audio_io import load_audio, load_audio_mono, save_wav
+    from csm_tpu_torch.train import cli
+    from csm_tpu_torch.train.loop import CSMTrainer, flatten
+
+    t_phase = time.perf_counter()
+    check(native.available(), f"finetune: the native audio library is not available: "
+                              f"{native.load_error()}")
+    d = os.path.join(REPO, "csm_tpu_torch", "_build", "finetune_smoke")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    out_dir = os.path.join(d, "out")
+    wrappers = train_counters()
+    steps, encodes, saves, warned = [], [], [], []
+
+    class Recorder(CSMTrainer):
+        """The CLI's trainer, timing each optimizer step (synchronized) with
+        the flash launches it made, and the final save."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            step_fn = self._step_fn
+
+            def timed(state, base, batch):
+                before = {k: w.launches for k, w in wrappers.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(state, base, batch)
+                torch.cuda.synchronize()
+                steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                  S=int(batch["input_ids"].shape[2]),
+                                  launches={k: w.launches - before[k]
+                                            for k, w in wrappers.items()}))
+                return out
+
+            self._step_fn = timed
+
+        def save_model(self, output_dir=None):
+            t0 = time.perf_counter()
+            super().save_model(output_dir)
+            saves.append(time.perf_counter() - t0)
+
+    plain_encode = mimi.mimi_encode
+
+    def recording_encode(cfg, params, wave, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes = plain_encode(cfg, params, wave, *args, **kw)
+        torch.cuda.synchronize()
+        encodes.append(dict(thread=threading.current_thread().name, device=str(wave.device),
+                            grad=torch.is_grad_enabled(), s=time.perf_counter() - t0))
+        return codes
+
+    class Warnings(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    files = write_finetune_files(d)
+    log(f"phase 14: wrote {len(files['clips'])} clips (audio I/O {files['audio_io_s']:.2f} s), "
+        f"random full-width Mimi weights in {files['mimi_write_s']:.1f} s; the Llama-3.2 "
+        "tokenizer is replaced by a char-level stand-in with BOS / EOS in the CLI's namespace "
+        "(its files are not in the repository)")
+    argv = ["--train_file", files["jsonl"], "--output_dir", out_dir, *FT_ARGS]
+    saved_env = os.environ.get("CSM_TPU_MIMI_PATH")
+    os.environ["CSM_TPU_MIMI_PATH"] = files["mimi_path"]
+    patched = dict(load_llama3_tokenizer=CharTokenizer, CSMTrainer=Recorder)
+    originals = {k: getattr(cli, k) for k in patched}
+    handler = Warnings(logging.WARNING)
+    dataset_logger = logging.getLogger("csm_tpu_torch.data.dataset")
+    dataset_logger.addHandler(handler)
+    try:
+        for k, v in patched.items():
+            setattr(cli, k, v)
+        mimi.mimi_encode = recording_encode
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        train_launches = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for k, v in originals.items():
+            setattr(cli, k, v)
+        mimi.mimi_encode = plain_encode
+        dataset_logger.removeHandler(handler)
+        if saved_env is None:
+            os.environ.pop("CSM_TPU_MIMI_PATH", None)
+        else:
+            os.environ["CSM_TPU_MIMI_PATH"] = saved_env
+    try:
+        ds = trainer.train_dataset
+        n_rows = len(FT_TEXTS)
+        want_steps = math.ceil(n_rows * FT_EPOCHS / FT_ACCUM)
+        losses = [m["loss"] for m in trainer._metrics_log]
+        log(f"phase 14: main() in {main_s:.1f} s: {trainer.state.step} optimizer steps "
+            f"(want {want_steps}), S {[s['S'] for s in steps]}, step ms "
+            f"{[round(s['ms'], 1) for s in steps]}, losses {[round(x, 4) for x in losses]}, "
+            f"flash launches per step {[s['launches'] for s in steps]}; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        check(trainer.state.step == want_steps and len(steps) == want_steps,
+              f"finetune: {trainer.state.step} optimizer steps ({len(steps)} timed), want "
+              f"{want_steps}")
+        check(len(losses) == want_steps and all(math.isfinite(x) for x in losses),
+              f"finetune: logged losses {losses}")
+        check(steps and all(all(s["launches"][k] > 0 for k in wrappers) for s in steps),
+              f"finetune: a step launched no flash kernel: {[s['launches'] for s in steps]}")
+        check(len(ds) == n_rows * FT_EPOCHS, f"finetune: dataset len {len(ds)}, want "
+                                             f"{n_rows * FT_EPOCHS}")
+        check(encodes and all(e["thread"] == "csm-batch-prefetch" and e["device"] == "cuda:0"
+                              and not e["grad"] for e in encodes),
+              f"finetune: Mimi encodes in training: {encodes}")
+        check(any(os.path.basename(files["missing"]) in m for m in warned),
+              f"finetune: no warning named the missing clip: {warned}")
+
+        # The items: every audio span ends in the zero EOS frame, codes in range.
+        items = [ds[i] for i in range(n_rows)]
+        spans = [_audio_spans(it["attention_mask"]) for it in items]
+        bad = [(i, s) for i, it in enumerate(items) for s in spans[i]
+               if (it["input_ids"][s[1] - 1, :32] != 0).any()
+               or not ((it["input_ids"][s[0]:s[1], :32] >= 0).all()
+                       and (it["input_ids"][s[0]:s[1], :32] < 2048).all())]
+        check([len(s) for s in spans] == [1] * n_rows and not bad,
+              f"finetune: audio spans {spans}, bad {bad}")
+
+        # The card's encode against the port's CPU encode of the same clips.
+        card = ds.processor.audio_tokenizer
+        host = load_mimi(files["mimi_path"], device="cpu")
+        codes = {"card": [], "cpu": [], "control": []}
+        t0 = time.perf_counter()
+        for clip in files["clips"]:
+            wave = load_audio_mono(clip["path"], card.sample_rate)
+            codes["card"].append(card.encode(wave))
+            codes["cpu"].append(host.encode(wave))
+            late = np.concatenate([[0.0], wave[:-1]]).astype(np.float32)
+            codes["control"].append(host.encode(late))
+        compare_s = time.perf_counter() - t0
+        shares = {k: [_code_shares(c, g) for c, g in zip(codes["card"], codes[k])]
+                  for k in ("cpu", "control")}
+        pooled = {k: _code_shares(np.concatenate(codes["card"], 1), np.concatenate(codes[k], 1))
+                  for k in ("cpu", "control")}
+        least, least_control = min(pooled["cpu"]), min(pooled["control"])
+        log(f"phase 14: card vs CPU Mimi codes, share equal per codebook over "
+            f"{sum(c.shape[1] for c in codes['card'])} frames: "
+            f"{[round(x, 3) for x in pooled['cpu']]}, least {least:.4f} (limit "
+            f"{FT_CODE_SHARE}; least of a clip {min(min(x) for x in shares['cpu']):.4f}); "
+            f"control, the CPU encode one sample later: least {least_control:.4f}, per "
+            f"codebook {[round(x, 3) for x in pooled['control']]}")
+        check(least >= FT_CODE_SHARE, f"finetune: card vs CPU Mimi codes, least share {least}")
+        check(least_control < FT_CODE_SHARE,
+              f"finetune: the one-sample-late control passes the code gate ({least_control})")
+
+        # The saved model reloads bitwise equal to the trainer's parameters.
+        t0 = time.perf_counter()
+        model = CSMModel.from_pretrained(out_dir, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        want = flatten(trainer.model_params())
+        got = flatten(model.params)
+        differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        check(got.keys() == want.keys() and not differ,
+              f"finetune: the saved model differs from the trainer's parameters at {differ}")
+        del trainer, want
+        torch.cuda.empty_cache()
+
+        # Greedy generation from a dataset prompt, Mimi decode, WAV round trip.
+        for w in wrappers.values():
+            w.launches = 0
+        prompt = items[0]
+        t0 = time.perf_counter()
+        frames = model.generate(prompt["input_ids"][None],
+                                prompt["attention_mask"][None].astype(np.float32),
+                                max_new_frames=FT_GEN_FRAMES, greedy=True,
+                                stop_on_all_zeros=False)
+        gen_s = time.perf_counter() - t0
+        gen_launches = {k: w.launches for k, w in wrappers.items()}
+        wave = card.decode(np.minimum(frames[0].T, card.config.codebook_size - 1))
+        path = os.path.join(d, "generated.wav")
+        save_wav(path, np.clip(wave, -1, 1), card.sample_rate)
+        back, rate = load_audio(path)
+        n_samples = FT_GEN_FRAMES * int(card.sample_rate / card.frame_rate)
+        log(f"phase 14: generated {tuple(frames.shape)} frames in {gen_s:.2f} s (flash launches "
+            f"{gen_launches}), decoded to {wave.shape} samples, read back {back.shape} at "
+            f"{rate} Hz")
+        check(frames.shape == (1, FT_GEN_FRAMES, 32) and rate == card.sample_rate
+              and back.shape == (1, n_samples) and np.isfinite(back).all()
+              and np.isfinite(wave).all(),
+              f"finetune: generated {frames.shape}, decoded {wave.shape}, read back "
+              f"{back.shape} at {rate} Hz")
+        del model
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    stages = dict(audio_io_s=files["audio_io_s"], mimi_write_s=files["mimi_write_s"],
+                  main_s=main_s, encode_s=sum(e["s"] for e in encodes),
+                  steps_s=sum(s["ms"] for s in steps) / 1e3, save_s=sum(saves),
+                  reload_s=reload_s, code_compare_s=compare_s, generate_s=gen_s)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 14 (fine-tuning from files) in {seconds:.1f} s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    launches = {k: train_launches[k] + gen_launches[k] for k in wrappers}
+    return dict(seconds=seconds, stages=stages, peak_memory_bytes=peak, steps=steps,
+                losses=losses, encodes=len(encodes), clips=files["clips"],
+                code_share=pooled["cpu"], code_share_control=pooled["control"],
+                code_share_by_clip=shares, warnings=warned,
+                train_launches=train_launches, generate_launches=gen_launches,
+                launches=launches, frames=frames.tolist())
+
+
+# ---------------------------------------------------------------------------
 # Phase 13: sequence parallelism (K3 / K5a / K5b with q_offset, sharded steps)
 # ---------------------------------------------------------------------------
 
@@ -2373,6 +2811,7 @@ def main() -> int:
     results["trainer"] = trainer_full_width(cfg, train.pop("params"))
     results["train"] = train["record"]
     log(f"phase 8 (training at full width) in {time.perf_counter() - t0:.1f} s")
+    results["finetune_cli"] = ft = finetune_cli()
     t0 = time.perf_counter()
     results["sharpened"] = sharpened_agreement(cfg)
     log(f"phase 9 (sharpened weights) in {time.perf_counter() - t0:.1f} s")
@@ -2385,6 +2824,7 @@ def main() -> int:
 
     fb = flash_bwd[(1, TRAIN_S, "bfloat16")]
     tl = train["launches"]
+    fl = ft["launches"]
     s4, sv = results["serving_int4"]["launches"], results["serving_int8"]["launches"]
     sp = {k: sum(r["launches"][k] for r in results["sharded_training"].values())
           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -2401,20 +2841,24 @@ def main() -> int:
     rows = [
         dict(name="flash_fwd", route="cuda", source="csm_tpu_torch/csrc/flash_fwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:104", r=flash[8],
-             launches=counters["flash_fwd"] + tl["flash_fwd"] + s4["flash_fwd"] + sp["flash_fwd"],
+             launches=(counters["flash_fwd"] + tl["flash_fwd"] + s4["flash_fwd"] + sp["flash_fwd"]
+                       + fl["flash_fwd"]),
              launches_by_path=dict(generate=counters["flash_fwd"], train=tl["flash_fwd"],
-                                   serve=s4["flash_fwd"], train_sharded=sp["flash_fwd"]),
+                                   serve=s4["flash_fwd"], train_sharded=sp["flash_fwd"],
+                                   finetune_cli=fl["flash_fwd"]),
              with_lse=dict(fb["fwd"], shape=fb["shape"]), q_offset=shard_readings("fwd"),
              hgmma=hgmma["flash_fwd_wgmma_kernel"]),
         dict(name="flash_bwd_dq", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:303", r=dict(fb["dq"], shape=fb["shape"]),
-             launches=tl["flash_bwd_dq"] + sp["flash_bwd_dq"],
-             launches_by_path=dict(train=tl["flash_bwd_dq"], train_sharded=sp["flash_bwd_dq"]),
+             launches=tl["flash_bwd_dq"] + sp["flash_bwd_dq"] + fl["flash_bwd_dq"],
+             launches_by_path=dict(train=tl["flash_bwd_dq"], train_sharded=sp["flash_bwd_dq"],
+                                   finetune_cli=fl["flash_bwd_dq"]),
              q_offset=shard_readings("dq"), hgmma=hgmma["flash_bwd_dq_wgmma_kernel"]),
         dict(name="flash_bwd_dkv", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:367", r=dict(fb["dkv"], shape=fb["shape"]),
-             launches=tl["flash_bwd_dkv"] + sp["flash_bwd_dkv"],
-             launches_by_path=dict(train=tl["flash_bwd_dkv"], train_sharded=sp["flash_bwd_dkv"]),
+             launches=tl["flash_bwd_dkv"] + sp["flash_bwd_dkv"] + fl["flash_bwd_dkv"],
+             launches_by_path=dict(train=tl["flash_bwd_dkv"], train_sharded=sp["flash_bwd_dkv"],
+                                   finetune_cli=fl["flash_bwd_dkv"]),
              q_offset=shard_readings("dkv"), hgmma=hgmma["flash_bwd_dkv_wgmma_kernel"]),
         dict(name="bb_decode", route="cuda", source="csm_tpu_torch/csrc/bb_decode.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1],

@@ -4,6 +4,8 @@ the same kind (pointer, ``int``, ``long long``, ``float``), and the same
 return type.  ``ctypes`` does not check a call against the C declaration, so
 a wrong count or kind shows only on the card, as a launch that fails or a
 pointer cut to 32 bits.  ``_build.load`` is stubbed: no ``nvcc`` is needed.
+The native audio library's functions (``native/*.cpp``) are held against
+``csm_tpu_torch.native.SIGNATURES`` the same way, type for type.
 """
 
 import ctypes
@@ -12,6 +14,7 @@ import re
 
 import pytest
 
+from csm_tpu_torch import native
 from csm_tpu_torch.ops import _build, bb_kernel, flash_attention, fused_decoder
 
 _FUNC = re.compile(r"(?:^|\n)(int|long long|const char\*)\s+(\w+)\(([^)]*)\)\s*\{")
@@ -81,3 +84,59 @@ def test_wrapper_signature_matches_the_c_declaration(monkeypatch, source, fn):
     restype, argtypes = bound[(source, fn)]
     assert _CTYPES[restype] == ret, (restype, ret)
     assert [_CTYPES[a] for a in argtypes] == kinds
+
+
+# The native audio library: each C parameter type against its exact ctypes
+# type (pointers by what they point to).
+_float_p = ctypes.POINTER(ctypes.c_float)
+_NATIVE_TYPES = {
+    "const char*": ctypes.c_char_p, "float**": ctypes.POINTER(_float_p),
+    "float*": _float_p, "const float*": _float_p, "int*": ctypes.POINTER(ctypes.c_int),
+    "long*": ctypes.POINTER(ctypes.c_long), "int": ctypes.c_int, "long": ctypes.c_long,
+    "void": None,
+}
+_NATIVE_FUNC = re.compile(r"(?:^|\n)(int|long|void)\s+(\w+)\(([^)]*)\)\s*\{")
+
+
+def _param_type(param: str) -> str:
+    """``const float* data`` -> ``const float*``."""
+    param = " ".join(param.split())
+    name = re.search(r"(\w+)$", param).group(1)
+    return param[: -len(name)].replace(" *", "*").strip()
+
+
+def _native_functions():
+    """``{function: (return type, [parameter types])}`` of every function
+    defined in an ``extern "C"`` block of ``native/*.cpp`` (static helpers
+    inside a block are not exported and are left out)."""
+    out = {}
+    for name in native.SOURCES:
+        with open(os.path.join(os.path.dirname(native.__file__), name)) as f:
+            text = f.read()
+        # a block ends at its ``}  // extern "C"`` with no other block opened
+        # before it (codecs.cpp opens two unmarked ones around declarations)
+        blocks = re.findall(r'extern "C" \{((?:(?!extern "C" \{).)*?)\}\s*// extern "C"', text,
+                            re.S)
+        for block in blocks:
+            for ret, fn, params in _NATIVE_FUNC.findall(block):
+                assert fn not in out, f"{fn} defined twice"
+                out[fn] = (ret, [_param_type(p) for p in params.split(",") if p.strip()])
+    return out
+
+
+NATIVE_FUNCTIONS = _native_functions()
+
+
+def test_native_signatures_cover_every_exported_function():
+    assert set(NATIVE_FUNCTIONS) == set(native.SIGNATURES)
+    assert {"audio_read", "wav_write", "resample_poly", "resample_poly_len"} <= set(NATIVE_FUNCTIONS)
+
+
+@pytest.mark.parametrize("fn", sorted(NATIVE_FUNCTIONS))
+def test_native_signature_matches_the_c_declaration(fn):
+    ret, params = NATIVE_FUNCTIONS[fn]
+    argtypes, restype = native.SIGNATURES[fn]
+    assert restype is _NATIVE_TYPES[ret], (fn, restype, ret)
+    assert len(argtypes) == len(params), (fn, argtypes, params)
+    for a, p in zip(argtypes, params):
+        assert a is _NATIVE_TYPES[p], (fn, a, p)

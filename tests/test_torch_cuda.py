@@ -898,3 +898,50 @@ def test_bbq_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bits, b_max):
         step(qsb, cfg, h0, cos, sin, bias, kc, vc, item_ns=short)
     with pytest.raises(ValueError, match="window"):
         step(qsb, cfg, *_bbq_inputs(cfg, 1, 16384, 0, cuda))
+
+
+def test_dataset_encodes_audio_with_the_cards_mimi(cuda, tmp_path):
+    """``CSMAudioTextDataset`` whose processor holds a ``MimiCodec`` on the
+    card (tiny, 32 quantizers, random weights) on a 48 kHz stereo WAV written
+    here: the same frames as with the codec on the CPU (text and mask
+    exactly, codes on at least 99 %), codes in range, the audio span ending
+    in the zero EOS frame."""
+    import json
+
+    from csm_tpu_torch.codec import MimiCodec, MimiCodecConfig, random_mimi_params
+    from csm_tpu_torch.data import CSMAudioTextDataset, CSMProcessor
+    from csm_tpu_torch.data.audio_io import save_wav
+
+    class CharTokenizer:
+        bos_token_id, eos_token_id = 1, 2
+
+        def encode(self, text, add_special_tokens=True):
+            return [1, *(10 + ord(c) % 80 for c in text), 2]
+
+    mcfg = MimiCodecConfig.tiny(num_quantizers=32)
+    params = random_mimi_params(mcfg, seed=0)
+    wav = str(tmp_path / "clip.wav")
+    wave = 0.3 * np.random.default_rng(0).standard_normal((2, 2 * 48000))
+    save_wav(wav, wave.astype(np.float32), 48000)
+    row = {"messages": [
+        {"role": "speaker_0", "content": [{"type": "text", "text": "hello"}]},
+        {"role": "speaker_1", "content": [{"type": "text", "text": "hi"},
+                                          {"type": "audio", "url": wav}]}]}
+    (tmp_path / "d.jsonl").write_text(json.dumps(row) + "\n")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        items = {dev: CSMAudioTextDataset(
+            str(tmp_path / "d.jsonl"), num_train_epochs=2, seed=3,
+            processor=CSMProcessor(CharTokenizer(), MimiCodec(mcfg, params, device=dev)))[1]
+            for dev in (cuda, "cpu")}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    card, host = items[cuda], items["cpu"]
+    np.testing.assert_array_equal(card["attention_mask"], host["attention_mask"])
+    np.testing.assert_array_equal(card["input_ids"][:, 32], host["input_ids"][:, 32])
+    audio = card["attention_mask"][:, 0] == 1
+    codes = card["input_ids"][audio, :32]
+    assert audio.sum() == 25 + 1 and (codes[-1] == 0).all()
+    assert codes.min() >= 0 and codes.max() < mcfg.codebook_size
+    assert (codes == host["input_ids"][audio, :32]).mean() >= 0.99

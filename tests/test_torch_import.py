@@ -28,7 +28,11 @@ assert not bad, bad
 assert len(names) >= 12, names
 assert {"csm_tpu_torch.serving", "csm_tpu_torch.codec.mimi", "csm_tpu_torch.codec.streaming",
         "csm_tpu_torch.codec.convert", "csm_tpu_torch.parallel", "csm_tpu_torch.parallel.mesh",
-        "csm_tpu_torch.parallel.launch", "csm_tpu_torch.parallel.collectives"} <= set(names), names
+        "csm_tpu_torch.parallel.launch", "csm_tpu_torch.parallel.collectives",
+        "csm_tpu_torch.data.processor", "csm_tpu_torch.data.dataset",
+        "csm_tpu_torch.data.audio_io", "csm_tpu_torch.data.tokenizer", "csm_tpu_torch.native",
+        "csm_tpu_torch.train.cli"} <= set(names), names
+from csm_tpu_torch.data import CSMAudioTextDataset, CSMDataCollator, CSMProcessor
 """
 
 
