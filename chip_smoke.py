@@ -109,9 +109,28 @@ Phases, each printed as it runs; any failure exits non-zero:
    [0, 2048), the card's Mimi codes against the CPU encode of the same
    clips (with a one-sample-late control that must break the gate), the
    saved model reloading bitwise equal to the trainer's parameters, and
-   greedy generation of 8 frames decoded, written and read back.
+   greedy generation of 8 frames decoded, written and read back;
+15. (run after phase 13) tensor parallelism on a model=2 mesh: K3 at phase
+   2's prefill shape and K3 with LSE, K5a and K5b at B = 1, S = 2048, all at
+   a rank's CSM-1B backbone head shard (16 query / 4 KV heads), against
+   their plain versions with times, bounds and SDPA; model=2 train steps on
+   ranks sharing ``cuda:0`` over gloo (data=1 at full depth, 3 steps, on
+   phase 8's batch; data=2 and seq=2 with 4 backbone layers at S = 1024,
+   B = 2, in one launch of four ranks), each against phase 13's one-process
+   step: losses, grad norm, per-parameter gradient norms with a lost
+   ``copy_to_model`` backward as the control that must break that gate,
+   shards bitwise equal across data / seq replicas and replicated
+   parameters on every rank, launches, ms, peak memory and the model
+   group's all-reduce time; then greedy generation of 16 frames from phase
+   6's prompt on phase 9's sharpened weights on two ranks, against the
+   one-process plain bf16 path (tokens gated where the smallest c0 top-2
+   gap > 0.5), both ranks' tokens equal, K3 once per layer a rank.
 
-Phases 7-10 and 12-14 print their seconds.
+Phases 12 and 14 each also read Mimi once with ``cudnn.allow_tf32`` at
+torch's default (True): streamed vs offline PCM, and card vs CPU codes,
+against their phase's gate.
+
+Phases 7-10 and 12-15 print their seconds.
 
 The full record of the run goes to ``chiprun_out/chip_smoke.json``.
 
@@ -239,12 +258,15 @@ def tensor_core_check() -> dict:
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 5e-5}
 
 
-def check_flash(B: int, gen, dtype_name: str = "bfloat16"):
+def check_flash(B: int, gen, dtype_name: str = "bfloat16", nq: int = 32, nkv: int = 8):
+    """K3 against its plain version at a prefill shape (``nq`` / ``nkv``:
+    CSM-1B's heads, or a rank's head shard under tensor parallelism); its
+    time beside the plain version's, SDPA's and the bound."""
     import torch
 
     from csm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
-    S, T, nq, nkv, hd = 256, 384, 32, 8, 64
+    S, T, hd = 256, 384, 64
     dev, dtype = "cuda", getattr(torch, dtype_name)
     q = torch.randn((B, S, nq, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, T, nkv, hd), generator=gen, device=dev).to(dtype)
@@ -264,9 +286,9 @@ def check_flash(B: int, gen, dtype_name: str = "bfloat16"):
     err = (out.float() - ref.float()).abs()[live].max().item()
     finite = bool(torch.isfinite(out.float()).all())
     tol = FLASH_TOL[dtype_name]
-    log(f"flash {dtype_name} B={B} S={S} T={T}: max|kernel-plain| on live rows {err:.3e} "
-        f"(tol {tol}), all rows finite {finite}")
-    check(err <= tol and finite, f"flash kernel disagrees with its plain version, {dtype_name} B={B}")
+    tag = f"flash {dtype_name} B={B} S={S} T={T} heads {nq}/{nkv}"
+    log(f"{tag}: max|kernel-plain| on live rows {err:.3e} (tol {tol}), all rows finite {finite}")
+    check(err <= tol and finite, f"{tag}: the flash kernel disagrees with its plain version")
 
     ms = cuda_ms(lambda: flash_attention(q, k, v, valid), iters=20)
     plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, valid), iters=5)
@@ -286,8 +308,8 @@ def check_flash(B: int, gen, dtype_name: str = "bfloat16"):
     kv_bytes = 2 * int(valid[:, :S].sum()) * nkv * hd * q.element_size()
     n_bytes = nbytes(q, out) + kv_bytes + B * min(S, T) * valid.element_size()
     b_ms, by = bound_ms(n_bytes, n_flops, dtype_name)
-    log(f"flash {dtype_name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({by})")
+    log(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({by})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=by, shape=f"B={B} S={S} T={T} nq={nq} nkv={nkv} hd={hd} {dtype_name}")
 
@@ -1334,6 +1356,39 @@ def serving_full_width(model, cfg, codec, bits: int) -> dict:
     return rec
 
 
+def tf32_pcm_reading(codec, cfg) -> dict:
+    """Phase 12's streamed-vs-offline PCM gate with ``cudnn.allow_tf32`` at
+    torch's default (True), as ``CSMServer`` runs Mimi when its caller sets
+    nothing: 12 frames of random codes (seed 0) fed one at a time to a
+    batch-1 streaming decoder against one offline decode.  The setting is
+    restored afterwards."""
+    import numpy as np
+    import torch
+
+    from csm_tpu_torch.codec.streaming import StreamingMimiDecoder
+
+    codes = np.random.default_rng(0).integers(0, codec.config.codebook_size,
+                                              (SERVE_BUDGET, cfg.audio_num_codebooks))
+    K = codec.num_codebooks
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        dec = StreamingMimiDecoder(codec, batch=1)
+        streamed = np.concatenate([np.asarray(dec.feed(c[None, :K, None])).reshape(-1)
+                                   for c in codes])
+        off = np.asarray(codec.decode(codes.T)).reshape(-1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    err = float(np.abs(streamed - off).max()) if streamed.shape == off.shape else float("inf")
+    ok = streamed.shape == off.shape and bool(np.allclose(streamed, off, rtol=WAVE_RTOL,
+                                                           atol=WAVE_ATOL))
+    log(f"Mimi with cudnn.allow_tf32 at torch's default (True): streamed vs offline PCM of "
+        f"{SERVE_BUDGET} frames, max |diff| {err:.3e} of {float(np.abs(off).max()):.3e} (rtol "
+        f"{WAVE_RTOL}, atol {WAVE_ATOL}): {'within' if ok else 'outside'} phase 12's gate")
+    check(ok, f"Mimi under default TF32: streamed PCM differs from the offline decode by {err:.3e}")
+    return dict(max_abs=err, max_offline=float(np.abs(off).max()), ok=ok)
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: flash backward kernels
 # ---------------------------------------------------------------------------
@@ -1352,18 +1407,19 @@ FLASH_LSE_TOL = 1e-4
 FLASH_BWD_SHAPES = ((1, 2048), (4, 512))
 
 
-def check_flash_bwd(B: int, S: int, gen, dtype_name: str) -> dict:
+def check_flash_bwd(B: int, S: int, gen, dtype_name: str, nq: int = 32, nkv: int = 8) -> dict:
     """K3 with LSE, K5a and K5b against their plain versions: lse on live
     rows, relative RMS of the gradients, dead rows exactly zero, two runs
-    bitwise equal; then times, bounds and the SDPA yardsticks."""
+    bitwise equal; then times, bounds and the SDPA yardsticks.  ``nq`` /
+    ``nkv``: CSM-1B's heads, or a rank's head shard."""
     import torch
 
     from csm_tpu_torch.ops import flash_attention as fa
 
-    nq, nkv, hd = 32, 8, 64
+    hd = 64
     g = nq // nkv
     dev, dtype = "cuda", getattr(torch, dtype_name)
-    tag = f"flash bwd {dtype_name} B={B} S={S}"
+    tag = f"flash bwd {dtype_name} B={B} S={S} heads {nq}/{nkv}"
     q, do = (torch.randn((B, S, nq, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
     k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
     valid = torch.ones((B, S), dtype=torch.int32, device=dev)
@@ -1666,6 +1722,7 @@ AGREE_PROMPT = 16
 # The exact tier must agree on every token when the plain path's smallest c0
 # top-2 gap exceeds this (the JAX package's trained-agreement gate).
 SHARP_GAP = 0.5
+SHARP_DIR = os.path.join(REPO, "csm_tpu_torch", "_build", "sharpened")
 # The int4 step's normed hidden against the plain bf16 step's.  The JAX
 # package's int4 budget, 0.15 max |diff| / max |plain| (tests/test_bb_kernel.py,
 # tiny random weights), is the scheme's per-product error (0.148 measured in
@@ -1861,6 +1918,8 @@ def sharpened_agreement(cfg) -> dict:
               f"sharpened: quantize(bits=4) agrees on {rec['quantize4_token_agreement']:.4f} of "
               f"tokens (< {INT4_AGREEMENT}) with a min top-2 gap of {gap:.3f} > {SHARP_GAP}")
     rec["batch_invariance"] = batch_invariance(model, cfg, ids0, mask0)
+    # The sharpened weights for phase 15b's ranks.
+    model.save_pretrained(SHARP_DIR)
     del model, params
     torch.cuda.empty_cache()
     return rec
@@ -2229,6 +2288,23 @@ def finetune_cli() -> dict:
         check(least >= FT_CODE_SHARE, f"finetune: card vs CPU Mimi codes, least share {least}")
         check(least_control < FT_CODE_SHARE,
               f"finetune: the one-sample-late control passes the code gate ({least_control})")
+        # The same comparison with cudnn.allow_tf32 at torch's default (True),
+        # as the CLI encodes when its caller sets nothing.
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            codes["card_tf32"] = [card.encode(load_audio_mono(clip["path"], card.sample_rate))
+                                  for clip in files["clips"]]
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+        pooled["tf32"] = _code_shares(np.concatenate(codes["card_tf32"], 1),
+                                      np.concatenate(codes["cpu"], 1))
+        least_tf32 = min(pooled["tf32"])
+        log(f"phase 14: card (cudnn.allow_tf32 at torch's default, True) vs CPU Mimi codes: "
+            f"least share {least_tf32:.4f} (limit {FT_CODE_SHARE}), per codebook "
+            f"{[round(x, 3) for x in pooled['tf32']]}")
+        check(least_tf32 >= FT_CODE_SHARE,
+              f"finetune: card Mimi codes under default TF32 vs CPU, least share {least_tf32}")
 
         # The saved model reloads bitwise equal to the trainer's parameters.
         t0 = time.perf_counter()
@@ -2283,6 +2359,7 @@ def finetune_cli() -> dict:
     return dict(seconds=seconds, stages=stages, peak_memory_bytes=peak, steps=steps,
                 losses=losses, encodes=len(encodes), clips=files["clips"],
                 code_share=pooled["cpu"], code_share_control=pooled["control"],
+                code_share_tf32=pooled["tf32"],
                 code_share_by_clip=shares, warnings=warned,
                 train_launches=train_launches, generate_launches=gen_launches,
                 launches=launches, frames=frames.tolist())
@@ -2516,7 +2593,7 @@ def _unsummed_grads_control(cfg, state, batch, max_dec: int, opt, mesh) -> dict:
         rows = batch["input_ids"].shape[1] // mesh.size("data")
         out = csm.forward(state.params, cfg, batch["input_ids"][0], batch["attention_mask"][0],
                           labels=batch["labels"][0], max_decoder_frames=max_dec, remat=True,
-                          remat_policy="dots" if rows == 1 else "nothing", sp_mesh=mesh)
+                          remat_policy="dots" if rows == 1 else "nothing", mesh=mesh)
         out.loss.backward()
     finally:
         collectives.reduce_scatter_frames = real
@@ -2562,7 +2639,7 @@ def _fwd_bwd_peak(cfg, params, batch, max_dec: int, mesh=None) -> int:
     rows = batch["input_ids"].shape[1] // (mesh.size("data") if mesh is not None else 1)
     out = csm.forward(params, cfg, batch["input_ids"][0], batch["attention_mask"][0],
                       labels=batch["labels"][0], max_decoder_frames=max_dec, remat=True,
-                      remat_policy="dots" if rows == 1 else "nothing", sp_mesh=mesh)
+                      remat_policy="dots" if rows == 1 else "nothing", mesh=mesh)
     out.loss.backward()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
@@ -2718,6 +2795,428 @@ def sharded_training() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: tensor parallelism (K3 / K5a / K5b on head shards, sharded steps
+# and generation)
+# ---------------------------------------------------------------------------
+
+# The model=2 train steps, one launch each: (ranks' (data, seq) meshes,
+# backbone layers, S, B, steps).  The first at full depth on phase 8's batch
+# (phase 13's first one-process reference), then data=2 and seq=2 in one
+# launch of four ranks, cut to 4 backbone layers on phase 13's second batch
+# and reference (four ranks' weights and AdamW state share the card).
+TP_RUNS = ((((1, 1),), 16, 2048, 1, 3), (((2, 1), (1, 2)), 4, 1024, 2, 1))
+TP_LAUNCH_TIMEOUT = 600.0
+TP_GEN_FRAMES = 16
+# 15a's gates against the one-process step.  Phase 13's grad-norm limit
+# holds as it is; the losses and the per-parameter norms get their own.
+# Phase 13's shards compute bitwise the one-process rows, but a TP rank's
+# column slice is a GEMM of its own shape and its row-parallel partials are
+# summed across ranks, so now and then a bf16 value rounds the other way
+# and the flip carries through the layers.  On an H100 sound runs read at
+# most 1.06e-5 on a loss (the backbone's, 4 layers) and 3.9e-3 on a
+# per-parameter gradient norm (a layer of backbone wv at full depth), where
+# phase 13's limits are 1e-5 and 3e-3; the lost copy_to_model control read
+# at least 0.74.  The limits sit ~5x and ~2.5x above those readings and
+# ~70x below the control.
+TP_LOSS_RTOL = 5e-5
+TP_GRAD_NORM_RTOL = 1e-2
+# 15b's TP prefill c0 logits against the one-process plain bf16 prefill's,
+# relative RMS: as above, over 16 layers the two drift apart as two correct
+# bf16 evaluations do (phase 3's gross limit; read 2.0e-2 on random
+# weights).
+TP_PREFILL_RMS_TOL = 5e-2
+
+
+def _tp_grad_norms(params, dims, mesh) -> dict:
+    """:func:`_grad_norms` of the whole model from this rank's shards: the
+    squares of each sharded leaf's gradient (per layer for the stacked
+    weights) summed over the ``model`` group, as the norms of the gathered
+    gradients."""
+    from csm_tpu_torch.parallel.collectives import all_reduce_sum
+    from csm_tpu_torch.train.loop import flatten
+
+    out = {}
+    for (name, p), d in zip(flatten(params).items(), dims):
+        g = p.grad.float()
+        g = g.reshape(g.shape[0], -1) if ".layers." in name else g.reshape(1, -1)
+        sq = g.square().sum(dim=1)
+        if d is not None:
+            sq = all_reduce_sum(sq, mesh.group("model"))
+        out[name] = sq.sqrt().tolist()
+    return out
+
+
+def _tp_backward(cfg, state, batch, max_dec: int, opt, mesh, dims) -> None:
+    """One forward and backward of the step's first microbatch with remat
+    "dots", the gradients all-reduced over ``batch``, scaled and clipped as
+    the train step does (the update is not applied)."""
+    import torch
+
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.parallel import collectives
+    from csm_tpu_torch.train.loop import flatten
+
+    leaves = list(flatten(state.params).values())
+    for p in leaves:
+        p.grad = None
+    out = csm.forward(state.params, cfg, batch["input_ids"][0], batch["attention_mask"][0],
+                      labels=batch["labels"][0], max_decoder_frames=max_dec, remat=True,
+                      remat_policy="dots", mesh=mesh)
+    out.loss.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+    collectives.all_reduce_flat_(grads, mesh.group("batch"))
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    opt.clip_(grads, [d is not None for d in dims], mesh.group("model"))
+
+
+def _tp_lost_copy_control(cfg, state, batch, max_dec: int, opt, mesh, dims) -> dict:
+    """The gradient norms (:func:`_tp_grad_norms`) of :func:`_tp_backward`
+    with ``copy_to_model``'s backward all-reduce dropped: each rank keeps the
+    gradient of its own heads and columns at every column-parallel input."""
+    from csm_tpu_torch.parallel import collectives
+    from csm_tpu_torch.train.loop import flatten
+
+    real = collectives._CopyToModel.backward
+    collectives._CopyToModel.backward = staticmethod(lambda ctx, grad: (grad, None))
+    try:
+        _tp_backward(cfg, state, batch, max_dec, opt, mesh, dims)
+    finally:
+        collectives._CopyToModel.backward = real
+    norms = _tp_grad_norms(state.params, dims, mesh)
+    for p in flatten(state.params).values():
+        p.grad = None
+    return norms
+
+
+def _model_allreduce_clock():
+    """Wrap the ``model`` group's all-reduce (``collectives._all_reduce_fp32``)
+    with a synchronized host clock; returns ``(record, restore)``."""
+    import torch
+
+    from csm_tpu_torch.parallel import collectives
+
+    real = collectives._all_reduce_fp32
+    rec = {"ms": 0.0, "calls": 0, "bytes": 0}
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(x, group)
+        torch.cuda.synchronize()
+        rec["ms"] += (time.perf_counter() - t0) * 1e3
+        rec["calls"] += 1
+        rec["bytes"] += x.numel() * 4
+        return out
+
+    collectives._all_reduce_fp32 = timed
+
+    def restore():
+        collectives._all_reduce_fp32 = real
+
+    return rec, restore
+
+
+def _tp_step_rank(meshes, layers: int, S: int, B: int, steps: int) -> list:
+    """One rank of each ``(data, seq)`` x model=2 mesh of ``meshes`` in turn
+    (one launch, so one start of the ranks) on the shared card: its shard of
+    a random bf16 CSM (seed 0) with ``layers`` backbone layers; the gradient
+    norms of the lost ``copy_to_model`` control; ``steps`` train steps
+    (remat "dots", AdamW as phase 8) with metrics, launches, ms, peak memory
+    and digests of its shard and of its replicated leaves; the first step's
+    gradient norms; then one forward and backward with the model group's
+    all-reduces timed."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.parallel import make_mesh, shard_params
+    from csm_tpu_torch.train import make_optimizer, make_train_step
+    from csm_tpu_torch.train.loop import flatten, leaf_dims
+    from csm_tpu_torch.utils.synthetic import synthetic_conversation_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = sp_config(layers)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_conversation_batch(cfg, S, batch=B, seed=0).items()}
+    max_dec = sp_max_dec(S, B)
+    out = []
+    for data, seq in meshes:
+        mesh = make_mesh(data=data, seq=seq, model=2)
+        params = shard_params(csm.init_params(cfg, 0, torch.bfloat16, "cuda"), mesh, cfg)
+        torch.cuda.empty_cache()
+        dims = leaf_dims(cfg, mesh)
+        opt = make_optimizer(5e-6, total_steps=100)
+        state = opt.init(params)
+        control = _tp_lost_copy_control(cfg, state, batch, max_dec, opt, mesh, dims)
+        step = make_train_step(cfg, opt, max_dec, remat=True, remat_policy="dots", mesh=mesh)
+
+        def replicated_digest():
+            h = hashlib.sha256()
+            for (name, t), d in zip(flatten(state.params).items(), dims):
+                if d is None:
+                    h.update(name.encode())
+                    h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                             .tobytes())
+            return h.hexdigest()
+
+        runs = []
+        for i in range(steps):
+            torch.cuda.reset_peak_memory_stats()
+            state, m, dt, launches = _timed_step(step, state, batch)
+            runs.append(dict(ms=dt * 1e3, launches=launches,
+                             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                             digest=_params_digest(state.params),
+                             replicated_digest=replicated_digest(), **m))
+            if i == 0:
+                grad_norms = _tp_grad_norms(state.params, dims, mesh)
+        clock, restore = _model_allreduce_clock()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _tp_backward(cfg, state, batch, max_dec, opt, mesh, dims)
+            torch.cuda.synchronize()
+            clock["fwd_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            restore()
+        out.append(dict(mesh=dict(mesh.shape), coords=mesh.coords, steps=runs,
+                        grad_norms=grad_norms, control_grad_norms=control,
+                        model_allreduce=clock,
+                        local_params=sum(p.numel() for p in flatten(state.params).values()),
+                        local_wq=tuple(state.params["backbone"]["layers"]["wq"].shape)))
+        del state, params, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_training(sp_refs: dict) -> dict:
+    """Phase 15a: the model=2 train steps of ``TP_RUNS`` on ranks spawned by
+    ``csm_tpu_torch.parallel.launch`` sharing ``cuda:0`` over gloo, each
+    against phase 13's one-process step on the same configuration and global
+    batch (``sp_refs``, by (layers, S, B)): losses, grad norm, per-parameter
+    gradient norms (the lost ``copy_to_model`` control must break that
+    gate), each model rank's shard bitwise equal across its data / seq
+    replicas and the replicated parameters bitwise equal on every rank."""
+    import torch
+
+    from csm_tpu_torch.parallel.launch import launch
+
+    rec = {}
+    for meshes, layers, S, B, steps in TP_RUNS:
+        ref = sp_refs[(layers, S, B)]
+        world = 2 * meshes[0][0] * meshes[0][1]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = launch(_tp_step_rank, world, meshes, layers, S, B, steps,
+                     timeout=TP_LAUNCH_TIMEOUT, num_threads=2)
+        wall = time.perf_counter() - t0
+        for k, (data, seq) in enumerate(meshes):
+            ranks = [r[k] for r in out]
+            tag = f"TP train data={data} x seq={seq} x model=2, {layers} layers, S={S}, B={B}"
+            first = ranks[0]["steps"][0]
+            d_loss = {x: abs(first[x] - ref[x]) / abs(ref[x])
+                      for x in ("loss", "backbone_loss", "decoder_loss")}
+            d_gn = abs(first["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+            check(max(d_loss.values()) <= TP_LOSS_RTOL and d_gn <= SP_GNORM_RTOL,
+                  f"{tag}: first step vs one process, losses {d_loss}, grad norm {d_gn:.2e}")
+            d_leaf = [_grad_norm_diff(r["grad_norms"], ref["grad_norms"]) for r in ranks]
+            d_ctrl = [_grad_norm_diff(r["control_grad_norms"], ref["grad_norms"]) for r in ranks]
+            check(max(d for d, _ in d_leaf) <= TP_GRAD_NORM_RTOL,
+                  f"{tag}: first step's per-parameter gradient norms vs one process {d_leaf}")
+            check(min(d for d, _ in d_ctrl) > TP_GRAD_NORM_RTOL,
+                  f"{tag}: the lost copy_to_model control passed the gradient gate: {d_ctrl}")
+            want = {"flash_fwd": layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+            for i in range(steps):
+                for m in (0, 1):
+                    digests = {r["steps"][i]["digest"] for r in ranks if r["coords"]["model"] == m}
+                    check(len(digests) == 1, f"{tag}: step {i}: model rank {m}'s shards differ "
+                          "across the data / seq replicas")
+                check(len({r["steps"][i]["replicated_digest"] for r in ranks}) == 1,
+                      f"{tag}: step {i}: the replicated parameters differ across ranks")
+                for r in ranks:
+                    st = r["steps"][i]
+                    check(all(math.isfinite(st[x]) for x in ("loss", "grad_norm")),
+                          f"{tag}: step {i} rank {r['coords']}: non-finite metrics")
+                    check(st["launches"] == want, f"{tag}: step {i} rank {r['coords']}: "
+                          f"launches {st['launches']}, want {want}")
+            for r in ranks:
+                st, ar = r["steps"], r["model_allreduce"]
+                log(f"{tag}: rank {r['coords']} ({r['local_params'] / 1e6:.0f} M parameters, wq "
+                    f"{r['local_wq']}): steps " + ", ".join(f"{x['ms']:.0f} ms" for x in st)
+                    + f", loss {st[0]['loss']:.4f}, grad norm {st[0]['grad_norm']:.4f}, launches "
+                    f"a step {st[0]['launches']}, peak "
+                    f"{max(x['peak_memory_bytes'] for x in st) / 2**30:.2f} GiB; model-group "
+                    f"all-reduces of a forward + backward: {ar['calls']} calls, "
+                    f"{ar['bytes'] / 1e9:.2f} GB, {ar['ms']:.0f} ms of {ar['fwd_bwd_ms']:.0f} ms")
+            log(f"{tag}: one process loss {ref['loss']:.4f}, grad norm {ref['grad_norm']:.4f}; "
+                "relative difference of the first step "
+                + ", ".join(f"{x} {v:.2e}" for x, v in d_loss.items()) + f", grad norm "
+                f"{d_gn:.2e} (limits {TP_LOSS_RTOL}, {SP_GNORM_RTOL}); per-parameter gradient "
+                "norms, worst a rank " + ", ".join(f"{d:.2e} ({n})" for d, n in d_leaf)
+                + ", lost copy_to_model control " + ", ".join(f"{d:.2e} ({n})" for d, n in d_ctrl)
+                + f" (limit {TP_GRAD_NORM_RTOL}); {wall:.1f} s with the ranks' start")
+            launches = {x: sum(st["launches"][x] for r in ranks for st in r["steps"]) for x in want}
+            rec[f"data{data}_seq{seq}_model2"] = dict(
+                config=dict(data=data, seq=seq, model=2, layers=layers, S=S, B=B, steps=steps),
+                ranks=ranks, loss_rel_diff=d_loss, grad_norm_rel_diff=d_gn,
+                grad_norms_rel_diff=d_leaf, control_grad_norms_rel_diff=d_ctrl,
+                launch_wall_s=wall, launches=launches)
+    return rec
+
+
+def _traced_generate(params, cfg, ids, mask, n_frames: int, mesh=None):
+    """Greedy ``generation.generate`` of ``n_frames`` with every frame's
+    smallest c0 top-2 gap (a host read, which waits for the frame's
+    backbone pass) and the host clock at each: ``(frames, gaps, seconds
+    from the call to each frame's c0 logits)``."""
+    from csm_tpu_torch import generation
+
+    gaps, stamps = [], []
+    orig = generation.decode_frame
+    t0 = time.perf_counter()
+
+    def traced(params, config, last_h, c0_logits, **kw):
+        top2 = c0_logits.float().topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).min().item())
+        stamps.append(time.perf_counter() - t0)
+        return orig(params, config, last_h, c0_logits, **kw)
+
+    generation.decode_frame = traced
+    try:
+        frames = generation.generate(params, cfg, ids, mask, max_new_frames=n_frames, greedy=True,
+                                     stop_on_all_zeros=False, mesh=mesh)
+    finally:
+        generation.decode_frame = orig
+    return frames, gaps, stamps
+
+
+def _prefill_logits(params, cfg, ids, mask, mesh=None):
+    """The c0 logits of the bf16 flash prefill of ``ids`` (fp32, numpy)."""
+    import torch
+
+    from csm_tpu_torch.models import csm, llama
+
+    nkv = llama.local_heads(params["backbone"]["layers"], cfg.backbone)[1]
+    cache = llama.KVCache.create(cfg.backbone, ids.shape[0], 128, dtype=torch.bfloat16,
+                                 device="cuda", num_kv_heads=nkv)
+    with torch.no_grad():
+        out = csm.forward(params, cfg, torch.as_tensor(ids, device="cuda"),
+                          torch.as_tensor(mask, device="cuda"), cache=cache, flash_prefill=True,
+                          mesh=mesh)
+    return out.logits.float().cpu().numpy()
+
+
+def _tp_generate_rank(ckpt: str) -> dict:
+    """One rank of a model=2 mesh on the shared card: its shard of the
+    sharpened weights, the flash prefill's c0 logits, then 16 greedy frames
+    from phase 6's 64-frame prompt (K3's launches counted, each frame's c0
+    logits stamped on the host clock)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from csm_tpu_torch import CSMModel
+    from csm_tpu_torch.ops.flash_attention import flash_fwd
+    from csm_tpu_torch.parallel import make_mesh, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    model = CSMModel.from_pretrained(ckpt, dtype=torch.bfloat16, device="cuda")
+    cfg = model.config
+    mesh = make_mesh(data=1, model=2)
+    params = shard_params(model.params, mesh, cfg)
+    del model
+    torch.cuda.empty_cache()
+    ids, mask = prompt(cfg, 1, 64, seed=1)
+    logits = _prefill_logits(params, cfg, ids, mask, mesh)
+    flash_fwd.launches = 0
+    torch.cuda.synchronize()
+    frames, gaps, stamps = _traced_generate(params, cfg, ids, mask, TP_GEN_FRAMES, mesh)
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return dict(frames=frames, gaps=gaps, logits=logits, flash_fwd=flash_fwd.launches,
+                first_frame_ms=stamps[0] * 1e3,
+                frame_step_ms=sorted(steps)[len(steps) // 2] * 1e3, coords=mesh.coords)
+
+
+def tp_generation() -> dict:
+    """Phase 15b: 16 greedy bf16 frames on a model=2 mesh of two ranks on
+    the card, from phase 6's prompt on phase 9's sharpened weights, against
+    the one-process plain bf16 path: tokens equal where the smallest c0
+    top-2 gap exceeds SHARP_GAP (reported either way), both ranks' tokens
+    identical, K3 once per layer a rank in the prefill, the prefill's c0
+    logits within TP_PREFILL_RMS_TOL of one process's."""
+    import numpy as np
+    import torch
+
+    from csm_tpu_torch import CSMModel
+    from csm_tpu_torch.parallel.launch import launch
+
+    model = CSMModel.from_pretrained(SHARP_DIR, dtype=torch.bfloat16, device="cuda")
+    cfg = model.config
+    ids, mask = prompt(cfg, 1, 64, seed=1)
+    ref_logits = _prefill_logits(model.params, cfg, ids, mask)
+    ref, gaps, _ = _traced_generate(model.params, cfg, ids, mask, TP_GEN_FRAMES)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(_tp_generate_rank, 2, SHARP_DIR, timeout=TP_LAUNCH_TIMEOUT, num_threads=2)
+    wall = time.perf_counter() - t0
+    L = cfg.backbone.num_hidden_layers
+    gap = min(gaps)
+    gated = gap > SHARP_GAP
+    same = [bool(np.array_equal(r["frames"], ref)) for r in ranks]
+    share = [float((r["frames"] == ref).mean()) if r["frames"].shape == ref.shape else 0.0
+             for r in ranks]
+    logit_rms = [rel_rms(torch.as_tensor(r["logits"]), torch.as_tensor(ref_logits)) for r in ranks]
+    check(ref.shape == (1, TP_GEN_FRAMES, cfg.audio_num_codebooks),
+          f"TP generate: one-process frames {ref.shape}")
+    check(bool(np.array_equal(ranks[0]["frames"], ranks[1]["frames"])),
+          "TP generate: the two ranks' tokens differ")
+    check(all(r["flash_fwd"] == L for r in ranks),
+          f"TP generate: K3 launches a rank {[r['flash_fwd'] for r in ranks]}, want {L}")
+    check(max(logit_rms) <= TP_PREFILL_RMS_TOL,
+          f"TP generate: prefill c0 logits relative RMS {logit_rms} vs one process")
+    if gated:
+        check(all(same), f"TP generate: tokens differ from one process ({share} equal) with a "
+              f"min c0 top-2 gap of {gap:.3f} > {SHARP_GAP}")
+    log(f"TP generate (model=2, bf16, sharpened weights, 64-frame prompt, {TP_GEN_FRAMES} greedy "
+        f"frames): tokens equal to one process {same} (share {share}), ranks identical "
+        f"{bool(np.array_equal(ranks[0]['frames'], ranks[1]['frames']))}; min c0 top-2 gap "
+        f"{gap:.3f} ({'gated' if gated else 'not gated'} at {SHARP_GAP}); prefill c0 logits "
+        f"relative RMS {[f'{x:.2e}' for x in logit_rms]} (limit {TP_PREFILL_RMS_TOL}); K3 launches "
+        f"a rank {[r['flash_fwd'] for r in ranks]}; c0 logits of the first frame after "
+        f"{[round(r['first_frame_ms'], 1) for r in ranks]} ms (prefill), then a frame step every "
+        f"{[round(r['frame_step_ms'], 1) for r in ranks]} ms (median) a rank (the ranks "
+        f"time-share one card); {wall:.1f} s with the ranks' start")
+    return dict(frames_equal=same, token_share_equal=share, min_c0_top2_gap=gap, gated=gated,
+                prefill_logits_rel_rms=logit_rms, wall_s=wall,
+                launches={"flash_fwd": sum(r["flash_fwd"] for r in ranks)},
+                ranks=[{k: v for k, v in r.items() if k not in ("frames", "logits")}
+                       for r in ranks])
+
+
+def tensor_parallelism(gen, sp_refs: dict) -> dict:
+    """Phase 15: K3 / K5a / K5b at a model=2 rank's CSM-1B backbone head
+    shard (16 query / 4 KV heads, hd 64, bf16: K3 at the prefill shape of
+    phase 2 and with LSE, K5a and K5b at phase 7's B = 1, S = 2048), then
+    the model=2 train steps (15a) and generation (15b)."""
+    import torch
+
+    rec = dict(flash=check_flash(8, gen, "bfloat16", nq=16, nkv=4),
+               flash_bwd=check_flash_bwd(1, TRAIN_S, gen, "bfloat16", nq=16, nkv=4))
+    torch.cuda.empty_cache()
+    rec["train"] = tp_training(sp_refs)
+    try:
+        rec["generate"] = tp_generation()
+    finally:
+        shutil.rmtree(SHARP_DIR, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2796,6 +3295,7 @@ def main() -> int:
     codec = MimiCodec(MimiCodecConfig(), random_mimi_params(MimiCodecConfig(), seed=0))
     results["serving_int4"] = serving_full_width(loaded, cfg, codec, bits=4)
     results["serving_int8"] = serving_full_width(loaded, cfg, codec, bits=8)
+    results["tf32_pcm"] = tf32_pcm_reading(codec, cfg)
     log(f"phase 12 (serving) in {time.perf_counter() - t0:.1f} s")
     del loaded, codec
     golden_on_card()
@@ -2821,6 +3321,11 @@ def main() -> int:
     results["q_offset"] = q_off
     results["sharded_training"] = sharded_training()
     log(f"phase 13 (sequence parallelism) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp_refs = {(r["config"]["layers"], r["config"]["S"], r["config"]["B"]): r["one_process"]
+               for r in results["sharded_training"].values()}
+    results["tensor_parallel"] = tp = tensor_parallelism(gen, sp_refs)
+    log(f"phase 15 (tensor parallelism) in {time.perf_counter() - t0:.1f} s")
 
     fb = flash_bwd[(1, TRAIN_S, "bfloat16")]
     tl = train["launches"]
@@ -2828,6 +3333,14 @@ def main() -> int:
     s4, sv = results["serving_int4"]["launches"], results["serving_int8"]["launches"]
     sp = {k: sum(r["launches"][k] for r in results["sharded_training"].values())
           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    tpl = {k: sum(r["launches"][k] for r in tp["train"].values())
+           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    tpg = tp["generate"]["launches"]["flash_fwd"]
+
+    def head_shard(r: dict) -> dict:
+        """A kernel's reading at the model=2 head shard (phase 15c)."""
+        keys = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
+        return {k: r[k] for k in keys if k in r}
 
     def shard_readings(part: str) -> dict:
         """The bf16 q_offset readings of one kernel, per shard count."""
@@ -2842,24 +3355,35 @@ def main() -> int:
         dict(name="flash_fwd", route="cuda", source="csm_tpu_torch/csrc/flash_fwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:104", r=flash[8],
              launches=(counters["flash_fwd"] + tl["flash_fwd"] + s4["flash_fwd"] + sp["flash_fwd"]
-                       + fl["flash_fwd"]),
+                       + fl["flash_fwd"] + tpl["flash_fwd"] + tpg),
              launches_by_path=dict(generate=counters["flash_fwd"], train=tl["flash_fwd"],
                                    serve=s4["flash_fwd"], train_sharded=sp["flash_fwd"],
-                                   finetune_cli=fl["flash_fwd"]),
+                                   finetune_cli=fl["flash_fwd"], train_tp=tpl["flash_fwd"],
+                                   generate_tp=tpg),
              with_lse=dict(fb["fwd"], shape=fb["shape"]), q_offset=shard_readings("fwd"),
+             head_shard=head_shard(tp["flash"]),
+             head_shard_with_lse=dict(head_shard(tp["flash_bwd"]["fwd"]),
+                                      shape=tp["flash_bwd"]["shape"]),
              hgmma=hgmma["flash_fwd_wgmma_kernel"]),
         dict(name="flash_bwd_dq", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:303", r=dict(fb["dq"], shape=fb["shape"]),
-             launches=tl["flash_bwd_dq"] + sp["flash_bwd_dq"] + fl["flash_bwd_dq"],
+             launches=(tl["flash_bwd_dq"] + sp["flash_bwd_dq"] + fl["flash_bwd_dq"]
+                       + tpl["flash_bwd_dq"]),
              launches_by_path=dict(train=tl["flash_bwd_dq"], train_sharded=sp["flash_bwd_dq"],
-                                   finetune_cli=fl["flash_bwd_dq"]),
-             q_offset=shard_readings("dq"), hgmma=hgmma["flash_bwd_dq_wgmma_kernel"]),
+                                   finetune_cli=fl["flash_bwd_dq"], train_tp=tpl["flash_bwd_dq"]),
+             q_offset=shard_readings("dq"),
+             head_shard=dict(head_shard(tp["flash_bwd"]["dq"]), shape=tp["flash_bwd"]["shape"]),
+             hgmma=hgmma["flash_bwd_dq_wgmma_kernel"]),
         dict(name="flash_bwd_dkv", route="cuda", source="csm_tpu_torch/csrc/flash_bwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:367", r=dict(fb["dkv"], shape=fb["shape"]),
-             launches=tl["flash_bwd_dkv"] + sp["flash_bwd_dkv"] + fl["flash_bwd_dkv"],
+             launches=(tl["flash_bwd_dkv"] + sp["flash_bwd_dkv"] + fl["flash_bwd_dkv"]
+                       + tpl["flash_bwd_dkv"]),
              launches_by_path=dict(train=tl["flash_bwd_dkv"], train_sharded=sp["flash_bwd_dkv"],
-                                   finetune_cli=fl["flash_bwd_dkv"]),
-             q_offset=shard_readings("dkv"), hgmma=hgmma["flash_bwd_dkv_wgmma_kernel"]),
+                                   finetune_cli=fl["flash_bwd_dkv"],
+                                   train_tp=tpl["flash_bwd_dkv"]),
+             q_offset=shard_readings("dkv"),
+             head_shard=dict(head_shard(tp["flash_bwd"]["dkv"]), shape=tp["flash_bwd"]["shape"]),
+             hgmma=hgmma["flash_bwd_dkv_wgmma_kernel"]),
         dict(name="bb_decode", route="cuda", source="csm_tpu_torch/csrc/bb_decode.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bb[1],
              kernels_per_step={B: r["kernels_per_step"] for B, r in bb.items()},

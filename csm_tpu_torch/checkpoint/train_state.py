@@ -8,9 +8,12 @@ Layout: ``<directory>/<step>/state.pt``.  A bundle is written to a temporary
 file and renamed into place, so a step directory that exists holds a
 complete bundle.
 
-Under a process group (data- or sequence-parallel training, whose replicas
-hold the same state) rank 0 writes, between two barriers: no rank reads a
-directory that is being written, and every rank restores from it.
+Under a process group rank 0 writes, between two barriers: no rank reads a
+directory that is being written, and every rank restores from it.  So every
+rank must hold the same state: under tensor parallelism, where each rank
+holds its shard, the caller passes the whole state, gathered over the
+``model`` axis, and cuts what it loads for its mesh (``CSMTrainer`` does
+both), so a bundle does not depend on the mesh that wrote it.
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ from csm_tpu_torch.codec.mimi import (
     decoder_plan,
     downsample_spec,
     encoder_plan,
+    fp32_convolutions,
     per_layer,
     quantizer_decode,
     quantizer_encode,
@@ -178,6 +179,7 @@ def decode_state_init(cfg: MimiCodecConfig, batch: int, dtype=torch.float32,
 
 
 @torch.no_grad()
+@fp32_convolutions
 def decode_step(cfg: MimiCodecConfig, params: dict, state: dict,
                 codes: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """Decode ``codes [B, Q, t]`` -> ``(wave [B, 1, t hop], new state)``, hop
@@ -244,6 +246,7 @@ def encode_state_init(cfg: MimiCodecConfig, batch: int, dtype=torch.float32,
 
 
 @torch.no_grad()
+@fp32_convolutions
 def encode_step(cfg: MimiCodecConfig, params: dict, state: dict, wave: torch.Tensor,
                 num_quantizers: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """Encode a ``[B, 1, t frame_size]`` chunk -> ``(codes [B, Q, t], new

@@ -16,6 +16,14 @@ rounded up to 128 slots, a 33-slot decoder cache per frame.
 Stopping (``modeling_csm.py:662-663``): ``stop_mode="batch"`` stops when a
 frame is all zero in every stream (not appended); ``stop_mode="stream"``
 freezes each stream at its own all-zero frame.
+
+Tensor parallelism (``mesh=``, parameters cut by
+:func:`csm_tpu_torch.parallel.shard_params`): the backbone and decoder run
+over the mesh's ``model`` axis, their caches hold this rank's KV heads, and
+every rank of the axis draws the same tokens (greedy, or the same Gumbel
+noise from generators seeded alike), so the ranks never diverge and no token
+is broadcast.  The ``data`` x ``seq`` ranks each generate the whole batch.
+The kernel bundles hold whole weights: under a model mesh they raise.
 """
 
 from __future__ import annotations
@@ -39,11 +47,20 @@ from csm_tpu_torch.ops.specdec import MAX_SPECDEC_B, decode_frame_specdec
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 
 
+def _refuse_bundles(mesh, *bundles) -> None:
+    """Raise when a kernel bundle (or ``specdec=True``) is given under a
+    model mesh."""
+    if mesh is not None and mesh.size("model") > 1 and any(
+            b is not None and b is not False for b in bundles):
+        raise ValueError(csm.BUNDLES_UNDER_TP)
+
+
 def _decoder_step(
     params: dict,
     config: CSMConfig,
     x: torch.Tensor,  # [B, S, Dd] projected inputs
     cache: KVCache,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One cached decoder forward over ``x`` at positions ``cache.index ..``;
     returns the last position's hidden ``[B, Dd]`` and the advanced cache."""
@@ -56,7 +73,7 @@ def _decoder_step(
     bias = llama.make_causal_bias(cache.valid, S, q_offset=start)
     h, cache = llama.forward(
         params["decoder"], config.decoder, x, rope_table=rope, positions=positions,
-        attn_bias=bias, cache=cache,
+        attn_bias=bias, cache=cache, mesh=mesh,
     )
     return h[:, -1, :], cache
 
@@ -74,6 +91,7 @@ def decode_frame(
     qdec: Optional[dict] = None,
     specdec: bool = False,
     greedy_rows: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Sample all 32 codebooks of one frame; returns ``[B, 32]`` int64.
 
@@ -87,7 +105,9 @@ def decode_frame(
     batches of up to ``MAX_CHUNKED_B`` then run the fused int8 kernel, or,
     with ``specdec``, up to ``MAX_SPECDEC_B`` run the speculative tier
     (exact: its tokens are the plain loop's).  Other batches take the plain
-    loop."""
+    loop.  ``mesh``: the decoder's weights are cut over its ``model`` axis
+    (module docstring)."""
+    _refuse_bundles(mesh, qdec, specdec)
     B = last_h.shape[0]
     N = config.audio_num_codebooks
     Va = config.audio_vocab_size
@@ -106,12 +126,13 @@ def decode_frame(
                            greedy_rows=greedy_rows)
 
     c0 = draw(c0_logits, 0)
-    c0_embed = csm.embed_audio(params, config, 0, c0)
+    c0_embed = csm.embed_audio(params, config, 0, c0, mesh)
     dec_cache = KVCache.create(
-        config.decoder, B, config.decoder_rope_positions, dtype=last_h.dtype, device=last_h.device
+        config.decoder, B, config.decoder_rope_positions, dtype=last_h.dtype, device=last_h.device,
+        num_kv_heads=llama.local_heads(params["decoder"]["layers"], config.decoder)[1],
     )
     prefill = torch.stack([last_h, c0_embed], dim=1) @ proj  # [B, 2, Dd]
-    h_last, dec_cache = _decoder_step(params, config, prefill, dec_cache)
+    h_last, dec_cache = _decoder_step(params, config, prefill, dec_cache, mesh)
 
     out = [c0]
     # Codebooks 1..N-2 each also advance the decoder; N-1 is classified from
@@ -119,8 +140,9 @@ def decode_frame(
     for i in range(1, N - 1):
         ci = draw(h_last @ params["audio_head"][i - 1], i)
         out.append(ci)
-        ci_embed = params["audio_embeddings"][ci + i * Va]
-        h_last, dec_cache = _decoder_step(params, config, (ci_embed @ proj)[:, None, :], dec_cache)
+        ci_embed = csm.embed_audio(params, config, i, ci, mesh)
+        h_last, dec_cache = _decoder_step(params, config, (ci_embed @ proj)[:, None, :], dec_cache,
+                                          mesh)
     out.append(draw(h_last @ params["audio_head"][N - 2], N - 1))
     return torch.stack(out, dim=1)
 
@@ -143,6 +165,7 @@ def generate_frame(
     qsb: Optional[dict] = None,
     specdec: bool = False,
     greedy_rows: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> csm.CSMOutput:
     """One frame's 32 codebooks (reference ``generate_frame``).
 
@@ -152,11 +175,12 @@ def generate_frame(
     ``qbb`` / ``qsb`` select the backbone step's tier, ``qdec`` /
     ``specdec`` the codebook loop's; ``temperature`` / ``topk`` may be
     per-row and ``greedy_rows`` marks deterministic rows
-    (:func:`decode_frame`)."""
+    (:func:`decode_frame`).  ``mesh``: parameters cut over its ``model``
+    axis (module docstring)."""
     out = csm.forward(
         params, config, input_ids, attention_mask, cache=cache,
         last_index=None if true_len is None else true_len - 1,
-        flash_prefill=flash_prefill, qbb=qbb, qsb=qsb,
+        flash_prefill=flash_prefill, qbb=qbb, qsb=qsb, mesh=mesh,
     )
     new_cache = out.cache
     if new_cache is not None and true_len is not None:
@@ -165,7 +189,7 @@ def generate_frame(
     samples = decode_frame(
         params, config, out.last_hidden_state, out.logits,
         temperature=temperature, topk=topk, greedy=greedy, generator=generator,
-        qdec=qdec, specdec=specdec, greedy_rows=greedy_rows,
+        qdec=qdec, specdec=specdec, greedy_rows=greedy_rows, mesh=mesh,
     )
     return csm.CSMOutput(
         last_hidden_state=out.last_hidden_state, logits=out.logits,
@@ -205,12 +229,15 @@ def generate_compiled(
     qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
     specdec: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill plus a loop of frame steps with static shapes.  Returns
     ``(frames [B, max_new_frames, 32], n_frames [B])``; rows past a stream's
     ``n_frames`` are zero.  The prefill's backbone stays in the param dtype;
     ``qbb`` / ``qsb`` serve the later frames' backbone steps, ``qdec`` /
-    ``specdec`` every frame's codebook loop."""
+    ``specdec`` every frame's codebook loop.  ``mesh``: parameters cut over
+    its ``model`` axis (module docstring)."""
+    _refuse_bundles(mesh, qdec, qbb, qsb, specdec)
     if stop_mode not in ("batch", "stream"):
         raise ValueError(f"stop_mode must be 'batch' or 'stream', got {stop_mode!r}")
     B, S, _ = input_ids.shape
@@ -222,9 +249,11 @@ def generate_compiled(
         cache_len = min(config.max_seq_len, S + max_new_frames)
         cache_len = ((cache_len + 127) // 128) * 128
     dtype = params["backbone"]["final_norm"].dtype
-    cache = KVCache.create(config.backbone, B, cache_len, dtype=dtype, device=dev)
+    cache = KVCache.create(config.backbone, B, cache_len, dtype=dtype, device=dev,
+                           num_kv_heads=llama.local_heads(params["backbone"]["layers"],
+                                                          config.backbone)[1])
     sample_kw = dict(temperature=temperature, topk=topk, greedy=greedy, generator=generator,
-                     qdec=qdec, specdec=specdec)
+                     qdec=qdec, specdec=specdec, mesh=mesh)
     out = generate_frame(
         params, config, input_ids, attention_mask, cache=cache,
         true_len=true_len, flash_prefill=True, **sample_kw,
@@ -302,11 +331,13 @@ def generate(
     qbb: Optional[dict] = None,
     qsb: Optional[dict] = None,
     specdec: bool = False,
+    mesh=None,
 ) -> np.ndarray:
     """Reference-compatible ``generate``: ``[B, n_frames, 32]`` int64 numpy
     tokens (possibly ``[B, 0, 32]``), computed on the params' device.
     ``generator``: one for the batch, or a list of ``B`` (per-stream draws,
-    as the server makes them)."""
+    as the server makes them).  ``mesh``: parameters cut over its ``model``
+    axis (module docstring)."""
     del use_cache
     dev = params["projection"].device
     ids = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor) else input_ids)
@@ -319,7 +350,7 @@ def generate(
         params, config, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), S,
         max_new_frames=max_new_frames, temperature=temperature, topk=topk, greedy=greedy,
         stop_on_all_zeros=stop_on_all_zeros, stop_mode=stop_mode, generator=generator,
-        qdec=qdec, qbb=qbb, qsb=qsb, specdec=specdec,
+        qdec=qdec, qbb=qbb, qsb=qsb, specdec=specdec, mesh=mesh,
     )
     n_frames = n_frames.cpu()
     n = int(n_frames.max()) if stop_mode == "stream" else int(n_frames[0])

@@ -13,7 +13,7 @@
   averaged over non-ignored targets.  The frame gather is padded/truncated
   to a static ``max_decoder_frames`` with zero-weight slots.
 
-Data- and sequence-parallel training (``forward(sp_mesh=mesh)``): every rank
+Data- and sequence-parallel training (``forward(mesh=mesh)``): every rank
 holds the full global batch and computes its rows (``data``) and frames
 (``seq``) of it.  RoPE positions are global; the backbone CE pairs each
 local frame's logits with the global next frame's label; the decoder frames
@@ -22,7 +22,21 @@ holds its conditioning hidden state (frame 0's wrap to ``S - 1`` on the last
 ``seq`` rank).  Loss sums and target counts are all-reduced, so every rank
 returns the global masked means, with the gradient of its own share of them:
 summed over the ranks, the gradient of the one-device loss on the global
-batch.
+batch.  The sums run over the ``data`` x ``seq`` ranks at this rank's
+``model`` index, never over ``model``: every model rank computes the same
+loss.
+
+Tensor parallelism (a mesh with ``model > 1`` and parameters cut by
+:func:`csm_tpu_torch.parallel.shard_params`): the stacks run column- and
+row-parallel products (:mod:`csm_tpu_torch.models.llama`); the embedding
+tables are vocab-sharded, so each lookup takes this rank's rows (zeros for
+ids outside them) and sums the gathered rows over ``model`` before any
+arithmetic on them (:func:`lookup`): each id hits exactly one rank, so the
+rows, and the 33-way masked sum after them, are the one-process values bit
+for bit.  The heads and ``projection`` stay replicated.  In a cached pass
+(generation) only the ``model`` axis splits the work: the ``data`` x
+``seq`` ranks each run the whole batch.  The kernel bundles (``qbb``,
+``qsb``) hold whole weights and raise under a model mesh.
 """
 
 from __future__ import annotations
@@ -37,8 +51,13 @@ from csm_tpu_torch.models import llama
 from csm_tpu_torch.models.llama import NEG_INF, KVCache, write_rows
 from csm_tpu_torch.ops.attention import flash_eligible, sp_flash_eligible
 from csm_tpu_torch.ops.rope import compute_rope_table, gather_rope
-from csm_tpu_torch.parallel.collectives import all_gather_frames, all_reduce_sum
+from csm_tpu_torch.parallel.collectives import all_gather_frames, all_reduce_sum, reduce_from_model
 from csm_tpu_torch.parallel.mesh import batch_sharding
+
+
+BUNDLES_UNDER_TP = (
+    "the kernel bundles (qdec, qbb, qsb, specdec; CSMModel.exact() / quantize()) hold whole "
+    "weights and do not run under a model mesh: generate on the plain tier (no bundles)")
 
 
 @dataclasses.dataclass
@@ -78,9 +97,30 @@ def init_params(config: CSMConfig, seed: int = 0, dtype=torch.float32, device=No
     }
 
 
-def embed_audio(params: dict, config: CSMConfig, codebook: int, tokens: torch.Tensor) -> torch.Tensor:
+def lookup(table: torch.Tensor, ids: torch.Tensor, rows: int, mesh=None) -> torch.Tensor:
+    """``table[ids]`` of an embedding table of ``rows`` rows, whole or this
+    rank's block of its rows over the mesh's ``model`` axis: ids outside the
+    block give zeros, and the rows are summed over the axis (exact: each id
+    hits one rank)."""
+    n = table.shape[0]
+    if n == rows:
+        return table[ids]
+    group = None if mesh is None else mesh.group("model")
+    if group is None:
+        raise ValueError(f"a table of {n} of {rows} rows is a shard of a model axis: pass the "
+                         "mesh it was cut for")
+    local = ids - mesh.index("model") * n
+    inside = (local >= 0) & (local < n)
+    got = table[local.clamp(0, n - 1)]
+    got = torch.where(inside[..., None], got, torch.zeros((), dtype=got.dtype, device=got.device))
+    return reduce_from_model(got, group)
+
+
+def embed_audio(params: dict, config: CSMConfig, codebook: int, tokens: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """Embedding of one codebook's tokens, offset by ``codebook * audio_vocab``."""
-    return params["audio_embeddings"][tokens.long() + codebook * config.audio_vocab_size]
+    return lookup(params["audio_embeddings"], tokens.long() + codebook * config.audio_vocab_size,
+                  config.audio_embedding_rows, mesh)
 
 
 def embed_frames(
@@ -88,14 +128,18 @@ def embed_frames(
     config: CSMConfig,
     input_ids: torch.Tensor,  # [B, S, 33]
     attention_mask: Optional[torch.Tensor],  # [B, S, 33] or None
+    mesh=None,
 ) -> torch.Tensor:
     """33-way masked embedding sum -> ``[B, S, D]`` (audio and text parts
-    reduced separately, then added)."""
+    reduced separately, then added); vocab-sharded tables are looked up by
+    :func:`lookup` before the sum."""
     N = config.audio_num_codebooks
     ids = input_ids.long()
     offsets = torch.arange(N, device=ids.device) * config.audio_vocab_size
-    audio_emb = params["audio_embeddings"][ids[..., :N] + offsets]  # [B,S,N,D]
-    text_emb = params["text_embeddings"][ids[..., N]]  # [B,S,D]
+    audio_emb = lookup(params["audio_embeddings"], ids[..., :N] + offsets,
+                       config.audio_embedding_rows, mesh)  # [B,S,N,D]
+    text_emb = lookup(params["text_embeddings"], ids[..., N], config.text_vocab_size,
+                      mesh)  # [B,S,D]
     if attention_mask is None:
         return audio_emb.sum(dim=2) + text_emb
     m = attention_mask.to(audio_emb.dtype)
@@ -135,7 +179,7 @@ def backbone_forward(
     use_flash: bool = True,
     remat: bool = False,
     remat_policy: str = "nothing",
-    sp_mesh=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Embed-sum + backbone stack -> hidden ``[B, S, D]``.
 
@@ -146,45 +190,36 @@ def backbone_forward(
     ``qbb``: int8 layer weights (:mod:`csm_tpu_torch.ops.quant`) for W8A16
     products.  ``use_flash=False`` forces the plain attention path of the
     uncached pass; ``remat`` / ``remat_policy`` checkpoint its layers
-    (:func:`csm_tpu_torch.models.llama.forward`).  ``sp_mesh``: a
+    (:func:`csm_tpu_torch.models.llama.forward`).  ``mesh``: a
     :class:`~csm_tpu_torch.parallel.Mesh`; the uncached pass then takes the
     global batch and returns this rank's block of hidden ``[B / data,
-    S / seq, D]`` (module docstring)."""
-    sp_mesh = _active(sp_mesh)
+    S / seq, D]``, and sharded weights run over its ``model`` axis (module
+    docstring)."""
+    if mesh is not None and qbb is not None:
+        raise ValueError("a mesh runs the unquantized pass only")
     if cache is None:
-        if sp_mesh is not None and qbb is not None:
-            raise ValueError("a mesh runs the unquantized pass only")
-        return _backbone_uncached(params, config, input_ids, attention_mask, sp_mesh, qbb,
+        return _backbone_uncached(params, config, input_ids, attention_mask, mesh, qbb,
                                   use_flash, remat, remat_policy), None
-    if sp_mesh is not None:
-        raise ValueError("a mesh runs the uncached pass only")
 
     # Cached path: record this chunk's validity in the window (in place),
     # then attend over the whole static window.
     B, S, _ = input_ids.shape
     dev = input_ids.device
     bcfg = config.backbone
-    h, frame_valid = _embed(params, config, input_ids, attention_mask)
+    h, frame_valid = _embed(params, config, input_ids, attention_mask, mesh)
     rope = compute_rope_table(bcfg, config.max_seq_len, dev)
     start = cache.index
     base = torch.as_tensor(start, device=dev).reshape(-1, 1)
     positions = (base + torch.arange(S, device=dev)).expand(B, S)
     write_rows(cache.valid, frame_valid, start)
-    if flash_prefill and flash_eligible(S, bcfg, params["backbone"]["layers"]["wq"]):
+    if flash_prefill and flash_eligible(S, bcfg, params["backbone"]["layers"]):
         bias, flash_valid = None, cache.valid
     else:
         bias, flash_valid = llama.make_causal_bias(cache.valid, S, q_offset=start), None
     return llama.forward(
         params["backbone"], bcfg, h, rope_table=rope, positions=positions,
-        attn_bias=bias, cache=cache, flash_key_valid=flash_valid, qlayers=qbb,
+        attn_bias=bias, cache=cache, flash_key_valid=flash_valid, qlayers=qbb, mesh=mesh,
     )
-
-
-def _active(mesh):
-    """The mesh, or None when it has a single rank on ``data`` x ``seq``."""
-    if mesh is None or mesh.size("data") * mesh.size("seq") == 1:
-        return None
-    return mesh
 
 
 def _group(mesh, axis: str):
@@ -193,10 +228,10 @@ def _group(mesh, axis: str):
     return None if mesh is None else mesh.group(axis)
 
 
-def _embed(params, config, input_ids, attention_mask):
+def _embed(params, config, input_ids, attention_mask, mesh):
     """``(embedded frames [B, S, D], frame validity [B, S])``: a frame is
     valid when any of its 33 tokens is."""
-    h = embed_frames(params, config, input_ids, attention_mask)
+    h = embed_frames(params, config, input_ids, attention_mask, mesh)
     if attention_mask is not None:
         return h, attention_mask.sum(dim=-1) > 0
     return h, torch.ones(input_ids.shape[:2], dtype=torch.bool, device=input_ids.device)
@@ -212,20 +247,19 @@ def _backbone_uncached(params, config, input_ids, attention_mask, mesh, qbb, use
     rows, frames = batch_sharding(mesh, B, S)
     ids = input_ids[rows, frames]
     mask = None if attention_mask is None else attention_mask[rows, frames]
-    h, frame_valid = _embed(params, config, ids, mask)
+    h, frame_valid = _embed(params, config, ids, mask, mesh)
     Bl, Sl = frame_valid.shape
     dev = ids.device
     bcfg = config.backbone
     rope = compute_rope_table(bcfg, config.max_seq_len, dev)
     positions = (frames.start + torch.arange(Sl, device=dev)).expand(Bl, Sl)
-    weight = params["backbone"]["layers"]["wq"]
+    layers = params["backbone"]["layers"]
     seq_mesh = mesh if mesh is not None and mesh.size("seq") > 1 else None
     if seq_mesh is None:
-        flash = use_flash and flash_eligible(Sl, bcfg, weight)
+        flash = use_flash and flash_eligible(Sl, bcfg, layers)
     else:
         flash = use_flash and sp_flash_eligible(
-            mesh, B, S, bcfg.num_attention_heads, bcfg.num_key_value_heads, bcfg.head_dim,
-            weight.dtype)
+            mesh, B, S, *llama.local_heads(layers, bcfg), bcfg.head_dim, layers["wq"].dtype)
     if flash:
         bias, flash_valid = None, frame_valid
     else:
@@ -235,15 +269,17 @@ def _backbone_uncached(params, config, input_ids, attention_mask, mesh, qbb, use
     hidden, _ = llama.forward(
         params["backbone"], bcfg, h, rope_table=rope, positions=positions, attn_bias=bias,
         flash_key_valid=flash_valid, qlayers=qbb, remat=remat, remat_policy=remat_policy,
-        sp_mesh=seq_mesh,
+        mesh=mesh, seq_sharded=seq_mesh is not None,
     )
     return hidden
 
 
-def decoder_forward_full(params: dict, config: CSMConfig, decoder_inputs: torch.Tensor) -> torch.Tensor:
+def decoder_forward_full(params: dict, config: CSMConfig, decoder_inputs: torch.Tensor,
+                         mesh=None) -> torch.Tensor:
     """Uncached decoder on ``[F, 33, Dd]`` inputs, positions 0..32."""
     rope = compute_rope_table(config.decoder, config.decoder_rope_positions, decoder_inputs.device)
-    return llama.forward_uncached(params["decoder"], config.decoder, decoder_inputs, rope_table=rope)
+    return llama.forward_uncached(params["decoder"], config.decoder, decoder_inputs, rope_table=rope,
+                                  mesh=mesh)
 
 
 def forward_decode_streamed(
@@ -314,7 +350,7 @@ def forward(
     use_flash: bool = True,
     remat: bool = False,
     remat_policy: str = "nothing",
-    sp_mesh=None,
+    mesh=None,
 ) -> CSMOutput:
     """Full forward with optional training losses.
 
@@ -326,16 +362,21 @@ def forward(
     the int8 and int4 ones) then go through that tier's backbone kernel.  ``qbb``: int8
     layer weights for the plain backbone's W8A16 products.  ``use_flash``,
     ``remat``, ``remat_policy``: see :func:`backbone_forward` (the training
-    step sets them).  ``sp_mesh``: a :class:`~csm_tpu_torch.parallel.Mesh`
-    of ``data`` x ``seq`` ranks; the arguments are then the global batch,
-    hidden-side outputs are this rank's block and the losses are the global
-    ones (module docstring)."""
+    step sets them).  ``mesh``: a :class:`~csm_tpu_torch.parallel.Mesh`.
+    In the uncached pass its ``data`` x ``seq`` ranks split the batch: the
+    arguments are then the global batch, hidden-side outputs are this rank's
+    block and the losses are the global ones.  Parameters cut by
+    ``shard_params`` run over its ``model`` axis in every pass; a cached pass
+    uses that axis only (module docstring)."""
     from csm_tpu_torch.ops.bb_kernel import MAX_VALIDATED_B, MAX_VALIDATED_B_EXACT
 
     B, S, _ = input_ids.shape
-    mesh = _active(sp_mesh)
-    if mesh is not None and (cache is not None or qsb is not None or last_index is not None):
-        raise ValueError("a mesh runs the uncached training / evaluation forward only")
+    if (cache is None and last_index is not None and mesh is not None
+            and mesh.size("data") * mesh.size("seq") > 1):
+        raise ValueError("last_index names a frame of the whole batch: a mesh that splits "
+                         "the batch takes none")
+    if mesh is not None and mesh.size("model") > 1 and (qsb is not None or qbb is not None):
+        raise ValueError(BUNDLES_UNDER_TP)
     if (
         qsb is not None and cache is not None and S == 1
         and B <= (MAX_VALIDATED_B if "s" in qsb else MAX_VALIDATED_B_EXACT)
@@ -346,7 +387,7 @@ def forward(
     hidden, new_cache = backbone_forward(
         params, config, input_ids, attention_mask, cache=cache,
         flash_prefill=flash_prefill, qbb=qbb, use_flash=use_flash, remat=remat,
-        remat_policy=remat_policy, sp_mesh=mesh,
+        remat_policy=remat_policy, mesh=mesh,
     )
     head = params["codebook0_head"]
     last_h = hidden[:, -1, :] if last_index is None else hidden[:, last_index, :]
@@ -374,15 +415,16 @@ def forward(
 
 
 def _decoder_logits(params: dict, config: CSMConfig, prev_h: torch.Tensor,
-                    frame_codebooks: torch.Tensor) -> torch.Tensor:
+                    frame_codebooks: torch.Tensor, mesh=None) -> torch.Tensor:
     """fp32 logits ``[F, N-1, Va]`` of codebooks 1..N-1 for ``F`` frames:
     the decoder over ``[prev_h; cb0..cbN-1]`` projected, then ``audio_head``."""
     N, Va = config.audio_num_codebooks, config.audio_vocab_size
     proj = params["projection"]
     offsets = torch.arange(N, device=prev_h.device) * Va
-    cb_emb = params["audio_embeddings"][frame_codebooks.long() + offsets]  # [F, N, D]
+    cb_emb = lookup(params["audio_embeddings"], frame_codebooks.long() + offsets,
+                    config.audio_embedding_rows, mesh)  # [F, N, D]
     dec_in = torch.cat([(prev_h @ proj)[:, None, :], cb_emb @ proj], dim=1)
-    dec_hidden = decoder_forward_full(params, config, dec_in)
+    dec_hidden = decoder_forward_full(params, config, dec_in, mesh)
     return torch.einsum("fcd,cdv->fcv", dec_hidden[:, 1:N, :].float(),
                         params["audio_head"].float())
 
@@ -417,7 +459,7 @@ def _losses(params, config, hidden, c0, input_ids, labels, max_decoder_frames, m
             & (p_idx >= frames.start) & (p_idx < frames.stop))
     b_idx, t_idx, p_idx = b_idx[mine], t_idx[mine], p_idx[mine]
     prev_h = hidden[b_idx - rows.start, p_idx - frames.start]
-    cb_logits = _decoder_logits(params, config, prev_h, input_ids[b_idx, t_idx, :N])
+    cb_logits = _decoder_logits(params, config, prev_h, input_ids[b_idx, t_idx, :N], mesh)
     dec_sum, dec_n = _ce_sum(cb_logits.reshape(-1, Va), labels[b_idx, t_idx, 1:N].reshape(-1))
 
     sums = all_reduce_sum(torch.stack([bb_sum.detach(), bb_n.float(), dec_sum.detach(),

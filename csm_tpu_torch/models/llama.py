@@ -29,11 +29,24 @@ the JAX package's ``dots_with_no_batch_dims_saveable`` plus its named flash
 output, so the backward re-runs neither the projections nor the flash
 forward.
 
-Sequence parallelism (``forward(sp_mesh=...)``): each rank holds its frames
-of the sequence; attention gathers K / V over the mesh's ``seq`` group,
-through :func:`~csm_tpu_torch.ops.flash_attention.flash_attention_sp` with
-this rank's query offset or, when the caller gives a bias instead of flash
-key validity, through the plain attention over the gathered K / V.
+Sequence parallelism (``forward(mesh=..., seq_sharded=True)``): each rank
+holds its frames of the sequence; attention gathers K / V over the mesh's
+``seq`` group, through :func:`~csm_tpu_torch.ops.flash_attention.
+flash_attention_sp` with this rank's query offset or, when the caller gives
+a bias instead of flash key validity, through the plain attention over the
+gathered K / V.
+
+Tensor parallelism (``forward(mesh=...)`` with weights cut by
+:func:`csm_tpu_torch.parallel.shard_params`): Q / K / V and gate / up are
+column-parallel products (their input passes :func:`~csm_tpu_torch.parallel.
+collectives.copy_to_model`), attention runs over the rank's local heads, and
+``wo`` / ``w_down`` are row-parallel products: each rank's partial product
+in fp32, added over the ``model`` group by :func:`~csm_tpu_torch.parallel.
+collectives.reduce_from_model` and rounded once, where one process rounds
+its whole product once (:func:`_row_product`).  The local head counts and FFN width come from the weights'
+shapes, ``head_dim`` from the global config (``LlamaConfig.head_dim`` is
+derived from the global head count); a block whose weights are whole runs
+without collectives.
 """
 
 from __future__ import annotations
@@ -51,7 +64,7 @@ from torch.utils.checkpoint import (
 
 from csm_tpu_torch.config import LlamaConfig
 from csm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_sp
-from csm_tpu_torch.parallel.collectives import gather_frames
+from csm_tpu_torch.parallel.collectives import copy_to_model, gather_frames, reduce_from_model
 from csm_tpu_torch.ops.quant import qmm
 from csm_tpu_torch.ops.rope import apply_rope, gather_rope
 
@@ -108,9 +121,12 @@ class KVCache:
 
     @classmethod
     def create(cls, config: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> "KVCache":
+               dtype=torch.bfloat16, device=None,
+               num_kv_heads: Optional[int] = None) -> "KVCache":
+        """An empty cache; ``num_kv_heads``: this rank's KV heads under
+        tensor parallelism (:func:`local_heads`), the config's by default."""
         shape = (config.num_hidden_layers, batch, max_len,
-                 config.num_key_value_heads, config.head_dim)
+                 num_kv_heads or config.num_key_value_heads, config.head_dim)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -169,6 +185,38 @@ def attention(
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, nq * hd)
 
 
+def local_heads(layers: dict, config: LlamaConfig) -> Tuple[int, int]:
+    """``(query heads, KV heads)`` of a stack whose (stacked or per-layer)
+    weights are ``layers``: the config's, or this rank's share under tensor
+    parallelism, read off the weights' shapes."""
+    hd = config.head_dim
+    return layers["wq"].shape[-1] // hd, layers["wk"].shape[-1] // hd
+
+
+def model_groups(layers: dict, config: LlamaConfig, mesh) -> Tuple[object, object]:
+    """``(attention group, MLP group)``: the mesh's ``model`` group for each
+    block whose weights in ``layers`` are this rank's shard, None for a block
+    with whole weights.  Shards without a model group raise."""
+    nq, _ = local_heads(layers, config)
+    parts = (nq != config.num_attention_heads,
+             layers["w_gate"].shape[-1] != config.intermediate_size)
+    group = None if mesh is None else mesh.group("model")
+    if any(parts) and group is None:
+        raise ValueError("the weights are shards of a model axis (their shapes are not the "
+                         "config's): pass the mesh they were cut for")
+    return tuple(group if p else None for p in parts)
+
+
+def _row_product(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """``x @ w`` for a row-parallel shard ``w`` (its rows are this rank's
+    part of ``x``'s features): the partial product in fp32 (products of
+    bf16 values are exact there), summed over ``group``, rounded once to
+    ``x``'s dtype; a plain product without a group."""
+    if group is None:
+        return x @ w
+    return reduce_from_model(x.float() @ w.float(), group).to(x.dtype)
+
+
 def _layer(
     h: torch.Tensor,
     lp: dict,
@@ -181,6 +229,7 @@ def _layer(
     flash_key_valid: Optional[torch.Tensor] = None,
     qlayer: Optional[dict] = None,
     sp_mesh=None,
+    groups: Tuple[object, object] = (None, None),
 ) -> torch.Tensor:
     """One pre-norm block.  With ``cache_kv`` (this layer's ``[B, max_len,
     nkv, hd]`` views) the new K/V rows are written in place at
@@ -191,19 +240,24 @@ def _layer(
     W8A16, Q/K/V and gate/up fused, each output cast to ``h``'s dtype.
     ``sp_mesh``: ``h`` is this rank's frames of a sequence sharded over the
     mesh's ``seq`` axis; K / V are gathered over it (``bias`` then spans
-    the gathered keys)."""
+    the gathered keys).  ``groups``: the ``model`` groups of the attention
+    and the MLP block (:func:`model_groups`), None for a whole block."""
     B, S, _ = h.shape
-    nq, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
-    F = config.intermediate_size
+    hd = config.head_dim
+    attn_group, mlp_group = groups
+    if qlayer is not None:
+        nq, nkv, F = config.num_attention_heads, config.num_key_value_heads, config.intermediate_size
+    else:
+        (nq, nkv), F = local_heads(lp, config), lp["w_gate"].shape[-1]
 
     if qlayer is not None:
-        def mm(x, name):
+        def mm(x, name, group=None):
             return qmm(x, qlayer["w"][name], qlayer["s"][name]).to(h.dtype)
     else:
-        def mm(x, name):
-            return x @ lp[name]
+        def mm(x, name, group=None):
+            return _row_product(x, lp[name], group)
 
-    x = rmsnorm(h, lp["attn_norm"], config.rms_norm_eps)
+    x = copy_to_model(rmsnorm(h, lp["attn_norm"], config.rms_norm_eps), attn_group)
     if qlayer is not None:
         qkv = mm(x, "wqkv")
         q = qkv[..., :nq * hd].reshape(B, S, nq, hd)
@@ -232,8 +286,8 @@ def _layer(
     else:
         attn = attention(q, k, v, bias)
 
-    h = h + mm(attn, "wo")
-    x = rmsnorm(h, lp["mlp_norm"], config.rms_norm_eps)
+    h = h + mm(attn, "wo", attn_group)
+    x = copy_to_model(rmsnorm(h, lp["mlp_norm"], config.rms_norm_eps), mlp_group)
     if qlayer is not None:
         gu = mm(x, "w_gu")
         g, up = gu[..., :F], gu[..., F:]
@@ -242,7 +296,7 @@ def _layer(
     # x * sigmoid(x), not F.silu: in bf16 the sigmoid is rounded before the
     # product, as in the JAX path and the exact backbone kernel.
     gated = g * torch.sigmoid(g) * up
-    return h + mm(gated, "w_down")
+    return h + mm(gated, "w_down", mlp_group)
 
 
 def make_causal_bias(
@@ -289,7 +343,8 @@ def forward(
     qlayers: Optional[dict] = None,
     remat: bool = False,
     remat_policy: str = "nothing",
-    sp_mesh=None,
+    mesh=None,
+    seq_sharded: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the stack.  Without a cache, T == S.  With one, the chunk's K/V
     are written (in place) at ``cache.index`` and attention spans the
@@ -298,11 +353,14 @@ def forward(
     (:func:`csm_tpu_torch.ops.quant.prepare_quantized_backbone`) for W8A16
     products.  ``remat`` (uncached passes under autograd): checkpoint each
     layer with ``remat_policy`` ``"nothing"`` or ``"dots"`` (module
-    docstring); no effect on a pass that builds no graph.  ``sp_mesh``
-    (uncached): ``inputs_embeds`` are this rank's frames of a sequence
-    sharded over the mesh's ``seq`` axis (see :func:`_layer`)."""
-    if sp_mesh is not None and cache is not None:
+    docstring); no effect on a pass that builds no graph.  ``mesh``: a
+    :class:`~csm_tpu_torch.parallel.Mesh`; weights cut by ``shard_params``
+    run tensor-parallel over its ``model`` axis (module docstring), and with
+    ``seq_sharded`` (uncached) ``inputs_embeds`` are this rank's frames of a
+    sequence sharded over its ``seq`` axis (see :func:`_layer`)."""
+    if seq_sharded and cache is not None:
         raise ValueError("sequence parallelism runs uncached passes only")
+    sp_mesh = mesh if seq_sharded else None
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}; got {remat_policy!r}")
     cos, sin = gather_rope(rope_table, positions)
@@ -318,6 +376,7 @@ def forward(
     # One unbind per stacked weight, not a slice per layer: the backward of
     # unbind stacks the layers' gradients once, where each slice's backward
     # would write a zero tensor of the whole stack for autograd to sum.
+    groups = model_groups(layers, config, mesh) if qlayers is None else (None, None)
     per_layer = {name: w.unbind(0) for name, w in layers.items()}
     for l in range(config.num_hidden_layers):
         lp = {name: ws[l] for name, ws in per_layer.items()}
@@ -326,7 +385,8 @@ def forward(
         ql = None if qlayers is None else {
             part: {name: w[l] for name, w in qlayers[part].items()} for part in ("w", "s")}
         h = run(h, lp, cos, sin, attn_bias, config, cache_kv=kv,
-                cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql, sp_mesh=sp_mesh)
+                cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql, sp_mesh=sp_mesh,
+                groups=groups)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(
@@ -341,13 +401,15 @@ def forward_uncached(
     inputs_embeds: torch.Tensor,
     *,
     rope_table: Tuple[torch.Tensor, torch.Tensor],
+    mesh=None,
 ) -> torch.Tensor:
     """Full-sequence causal forward over all-valid rows at positions
-    ``arange(S)`` (the decoder's training pass)."""
+    ``arange(S)`` (the decoder's training pass); ``mesh`` as in
+    :func:`forward`."""
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     positions = torch.arange(S, device=dev).expand(B, S)
     bias = make_causal_bias(torch.ones((B, S), dtype=torch.bool, device=dev), S)
     h, _ = forward(params, config, inputs_embeds, rope_table=rope_table,
-                   positions=positions, attn_bias=bias)
+                   positions=positions, attn_bias=bias, mesh=mesh)
     return h

@@ -21,18 +21,29 @@ from csm_tpu_torch.config import LlamaConfig
 from csm_tpu_torch.ops.flash_attention import DTYPES, GROUPS, HEAD_DIMS
 
 
-def flash_eligible(q_len: int, config: LlamaConfig, weight: torch.Tensor) -> bool:
-    """Whether a ``q_len``-token pass of the stack ``config`` whose weights
-    look like ``weight`` (dtype, device) should use the flash kernels."""
+def flash_eligible(q_len: int, config: LlamaConfig, layers: dict) -> bool:
+    """Whether a ``q_len``-token pass of the stack ``config`` with the
+    stacked weights ``layers`` should use the flash kernels: on CUDA, in a
+    dtype, head dim and GQA group they take.  The head counts are the
+    weights' own (this rank's heads under tensor parallelism); a head shard
+    the kernels do not take where the whole stack's heads are taken raises,
+    so that no sharded pass drifts to the plain attention on the card."""
+    weight = layers["wq"]
     if weight.device.type != "cuda" or q_len < 2:
         return False
-    nq, nkv = config.num_attention_heads, config.num_key_value_heads
-    return (
-        weight.dtype in DTYPES
-        and config.head_dim in HEAD_DIMS
-        and nq % nkv == 0
-        and nq // nkv in GROUPS
-    )
+    hd = config.head_dim
+    nq, nkv = weight.shape[-1] // hd, layers["wk"].shape[-1] // hd
+    ok = _takes(nq, nkv, hd, weight.dtype)
+    if not ok and _takes(config.num_attention_heads, config.num_key_value_heads, hd, weight.dtype):
+        raise ValueError(f"a head shard of {nq} query / {nkv} KV heads is not taken by the "
+                         "flash kernels, which take the whole stack's")
+    return ok
+
+
+def _takes(nq: int, nkv: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the flash kernels take this head layout and dtype."""
+    return (dtype in DTYPES and head_dim in HEAD_DIMS and nkv > 0 and nq % nkv == 0
+            and nq // nkv in GROUPS)
 
 
 def sp_flash_eligible(mesh, batch: int, q_len: int, num_q_heads: int, num_kv_heads: int,
@@ -41,11 +52,12 @@ def sp_flash_eligible(mesh, batch: int, q_len: int, num_q_heads: int, num_kv_hea
     on ``mesh`` takes :func:`~csm_tpu_torch.ops.flash_attention.
     flash_attention_sp`: a ``seq`` axis above 1 that divides ``q_len``, a
     ``data`` axis that divides ``batch``, at least two frames a shard, and a
-    dtype, head dim and GQA group the kernels take."""
+    dtype, head dim and GQA group the kernels take.  The head counts are
+    this rank's (its share under tensor parallelism)."""
     if mesh is None or mesh.size("seq") == 1:
         return False
     if q_len % mesh.size("seq") or batch % mesh.size("data"):
         return False
-    if num_q_heads % num_kv_heads or q_len // mesh.size("seq") < 2:
+    if q_len // mesh.size("seq") < 2:
         return False
-    return dtype in DTYPES and head_dim in HEAD_DIMS and num_q_heads // num_kv_heads in GROUPS
+    return _takes(num_q_heads, num_kv_heads, head_dim, dtype)

@@ -10,6 +10,14 @@
 - :func:`all_reduce_flat_`: the gradients' all-reduce, one flat fp32 bucket
   in a fixed order, so every rank issues the same collective and gets the
   same sums bit for bit.
+- :func:`copy_to_model` / :func:`reduce_from_model`: the two conjugate
+  operators of Megatron-style tensor parallelism over the ``model`` group.
+  ``copy_to_model`` (the identity forward, a summed all-reduce backward)
+  goes at the input of every column-parallel product, ``reduce_from_model``
+  (a summed all-reduce forward, the identity backward) at the output of
+  every row-parallel product and vocab-sharded lookup.  Both reduce in fp32
+  and cast back once: one rounding after the sum, and no reliance on gloo's
+  bf16 reductions.
 
 Backends.  NCCL (a card per rank) and gloo (ranks that share one card, or
 the CPU) both take these collectives on the tensors' own device: gloo takes
@@ -100,3 +108,52 @@ def all_reduce_flat_(tensors: List[torch.Tensor], group) -> None:
     dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
     for t, o in zip(tensors, offsets):
         t.copy_(bucket[o:o + t.numel()].view(t.shape))
+
+
+def _all_reduce_fp32(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in fp32, cast back to ``x``'s dtype (a new
+    tensor).  Every rank of the group gets the same bits."""
+    if x.numel() == 0:  # the group's ranks share their shapes: all skip
+        return x.clone()
+    buf = x.detach().to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_fp32(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_fp32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient is summed over ``group`` (the input of
+    a column-parallel product, whose ranks each give the gradient of their
+    own columns)."""
+    if group_size(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (the partial sums of a row-parallel
+    product, or the rows of a vocab-sharded lookup); its gradient passes
+    through unchanged."""
+    if group_size(group) == 1:
+        return x
+    return _ReduceFromModel.apply(x, group)

@@ -52,7 +52,14 @@ def _rank_main(rank: int, world: int, init_file: str, num_threads: int, fn: Call
         dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                                 world_size=world,
                                 timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-        results.put((rank, True, to_numpy(fn(*args))))
+        # Every rank's pairs are connected before ``fn`` runs, and none is torn
+        # down before every rank is done with them: a rank whose ``fn`` runs no
+        # collective could otherwise close its pairs while a peer still
+        # connects ("Connection closed by peer").
+        dist.barrier()
+        value = to_numpy(fn(*args))
+        dist.barrier()
+        results.put((rank, True, value))
     except BaseException:  # noqa: BLE001 (sent to the parent, which raises)
         results.put((rank, False, traceback.format_exc()))
     finally:

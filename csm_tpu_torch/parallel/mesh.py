@@ -9,7 +9,13 @@ in the rank order of ``np.arange(n).reshape(data, seq, model)``:
 - ``seq``: each rank holds its frames of every row, and attention gathers
   K / V over the axis (:func:`csm_tpu_torch.ops.flash_attention.
   flash_attention_sp`);
-- ``model``: tensor parallelism, not ported yet (``model > 1`` raises).
+- ``model``: Megatron-style tensor parallelism.  Each rank holds its shard
+  of the parameters (:func:`shard_params`): the attention projections cut on
+  the head dimension (``wq`` / ``wk`` / ``wv`` on their output columns,
+  ``wo`` on its input rows), the gated MLP on the FFN dimension (``w_gate`` /
+  ``w_up`` on columns, ``w_down`` on rows), both embedding tables on their
+  vocab rows; the model sums the row-parallel products and the lookups over
+  the axis (:mod:`csm_tpu_torch.parallel.collectives`).
 
 Every process holds the full global batch on the host (the data pipeline is
 deterministic by item index), and takes its rows and frames of it
@@ -20,8 +26,14 @@ CPU, or sharing one card when the caller asks for it.  The mesh
 builds its groups with ``dist.new_group``, not ``init_device_mesh``, which
 would pick NCCL for CUDA and fail on ranks that share a card.
 
-The tensor-parallel layout table of the JAX package (``param_sharding``) is
-kept as data for the slice that ports the ``model`` axis.
+The layout table is the JAX package's (:func:`param_sharding` without
+arguments).  Fitted to a configuration it differs in one deliberate rule, at
+head granularity: a stack's ``wq`` / ``wk`` / ``wv`` / ``wo`` are sharded
+only when the ``model`` axis divides both its query and its KV head counts,
+else they stay replicated (the stack's MLP is still sharded where the axis
+divides its FFN width).  XLA's partitioner may split a head's columns and
+reshard; the port's explicit products cannot.  ``CSMConfig.tiny()``'s
+decoder (2 query / 1 KV head) keeps replicated attention at ``model=2``.
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from csm_tpu_torch.parallel.collectives import all_gather_frames
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
@@ -127,10 +141,6 @@ def make_mesh(data: Optional[int] = None, model: int = 1, seq: int = 1) -> Mesh:
     defaults to ``world_size // (seq * model)``; the mesh must cover every
     rank.  Every rank must call it, in the same order as its other
     collectives (it creates the axis groups)."""
-    if model != 1:
-        raise NotImplementedError(
-            f"model={model}: tensor parallelism is not ported yet (queued in ROADMAP.md); "
-            "the port's mesh takes data and seq axes")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call maybe_init_distributed() "
                            "or torch.distributed.init_process_group first")
@@ -199,7 +209,7 @@ def put_global_batch(batch: dict, mesh: Mesh, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel layout (data for the slice that ports the model axis)
+# Tensor-parallel layout
 # ---------------------------------------------------------------------------
 
 
@@ -221,6 +231,9 @@ def _llama_rules() -> dict:
         },
         "final_norm": (),
     }
+
+
+ATTENTION = ("wq", "wk", "wv", "wo")
 
 
 def _specs() -> dict:
@@ -246,17 +259,103 @@ def _fit_spec(spec: tuple, shape, sizes: Dict[str, int]) -> tuple:
                  for i, a in enumerate(axes))
 
 
-def param_sharding(mesh: Optional[Mesh] = None, params: Optional[dict] = None) -> dict:
+def param_shapes(config) -> dict:
+    """The shape of every parameter of :func:`csm_tpu_torch.models.csm.
+    init_params` under ``config`` (a ``CSMConfig``)."""
+
+    def stack(c):
+        L, D, F, hd = c.num_hidden_layers, c.hidden_size, c.intermediate_size, c.head_dim
+        q, kv = c.num_attention_heads * hd, c.num_key_value_heads * hd
+        return {"layers": {"attn_norm": (L, D), "wq": (L, D, q), "wk": (L, D, kv),
+                           "wv": (L, D, kv), "wo": (L, q, D), "mlp_norm": (L, D),
+                           "w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D)},
+                "final_norm": (D,)}
+
+    D, Dd = config.backbone.hidden_size, config.decoder.hidden_size
+    Va = config.audio_vocab_size
+    return {"backbone": stack(config.backbone), "decoder": stack(config.decoder),
+            "text_embeddings": (config.text_vocab_size, D),
+            "audio_embeddings": (config.audio_embedding_rows, D), "projection": (D, Dd),
+            "codebook0_head": (D, Va), "audio_head": (config.audio_num_codebooks - 1, Dd, Va)}
+
+
+def param_sharding(mesh: Optional[Mesh] = None, params: Optional[dict] = None,
+                   config=None) -> dict:
     """The layout of :func:`csm_tpu_torch.models.csm.init_params`' tree:
-    one spec per parameter.  With ``params`` the specs are fitted to their
-    shapes on the mesh's axis sizes."""
+    one spec per parameter.  Without ``config`` the raw table, the JAX
+    package's.  With ``config`` (a ``CSMConfig``) the specs are fitted on
+    the mesh's axis sizes to the shapes of ``params`` (default: the
+    configuration's own, :func:`param_shapes`): per dimension as the JAX
+    package's ``_fit_spec``, then at head granularity, a stack's attention
+    projections are replicated unless the ``model`` axis divides both its
+    query and its KV head counts (module docstring)."""
     specs = _specs()
-    if params is None:
+    if config is None:
+        if params is not None:
+            raise ValueError("fitting the specs needs the config (its head counts)")
         return specs
+    shapes = (param_shapes(config) if params is None
+              else _tree_map(lambda p: tuple(p.shape), params))
 
-    def fit(spec, p):
+    def fit(spec, shape):
         if isinstance(spec, dict):
-            return {k: fit(spec[k], p[k]) for k in spec}
-        return _fit_spec(spec, tuple(p.shape), mesh.shape)
+            return {k: fit(spec[k], shape[k]) for k in spec}
+        return _fit_spec(spec, shape, mesh.shape)
 
-    return fit(specs, params)
+    fitted = fit(specs, shapes)
+    m = mesh.shape["model"]
+    for name in ("backbone", "decoder"):
+        c = getattr(config, name)
+        if c.num_attention_heads % m or c.num_key_value_heads % m:
+            layers = fitted[name]["layers"]
+            for w in ATTENTION:
+                layers[w] = (None,) * len(layers[w])
+    return fitted
+
+
+def _tree_map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def sharded_dim(spec: tuple) -> Optional[int]:
+    """The dimension a fitted spec cuts over ``model``, or None."""
+    return spec.index("model") if "model" in spec else None
+
+
+def take_shard(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over the mesh's ``model``
+    axis, as a tensor of its own."""
+    n = t.shape[dim] // mesh.size("model")
+    return t.narrow(dim, mesh.index("model") * n, n).clone()
+
+
+def shard_params(params: dict, mesh: Mesh, config) -> dict:
+    """This rank's parameters on ``mesh``: each tensor of ``params`` (the
+    whole tree, on any device) cut by ``param_sharding(mesh, params,
+    config)`` at ``mesh.index("model")`` (:func:`take_shard`); replicated
+    tensors are returned as given."""
+    specs = param_sharding(mesh, params, config)
+
+    def cut(spec, p):
+        d = sharded_dim(spec)
+        return p if d is None or mesh.size("model") == 1 else take_shard(p, d, mesh)
+
+    return _tree_map(cut, specs, params)
+
+
+def gather_params(local: dict, mesh: Mesh, config) -> dict:
+    """The inverse of :func:`shard_params`: every sharded tensor of
+    ``local`` all-gathered over the mesh's ``model`` group (every rank of
+    the group calls it and gets the whole tree); replicated tensors are
+    returned as given."""
+    specs = param_sharding(mesh, config=config)
+    group = mesh.group("model")
+
+    def gather(spec, p):
+        d = sharded_dim(spec)
+        return p if d is None else all_gather_frames(p.contiguous(), group, dim=d)
+
+    return _tree_map(gather, specs, local)

@@ -4,10 +4,9 @@ with the same defaults: lr 5e-6, 3 epochs, per-device batch 1, grad-accum 8,
 logging every step, epoch-based saves rotated to 3 checkpoints, optional
 bf16.
 
-``mesh_data`` / ``mesh_seq`` lay the ranks of a ``torch.distributed`` job
-on a data x sequence mesh (:func:`csm_tpu_torch.parallel.make_mesh`);
-tensor parallelism is not ported yet, so ``mesh_model`` other than 1 raises
-``NotImplementedError`` (queued in ROADMAP.md)."""
+``mesh_data`` / ``mesh_seq`` / ``mesh_model`` lay the ranks of a
+``torch.distributed`` job on a data x sequence x model mesh
+(:func:`csm_tpu_torch.parallel.make_mesh`)."""
 
 from __future__ import annotations
 
@@ -80,15 +79,11 @@ class TrainingArguments:
     # to max_seq_length)
     mesh_data: Optional[int] = None  # data-parallel axis size (None: the
     # ranks left over by seq x model)
-    mesh_model: int = 1  # tensor-parallel axis size (not ported)
+    mesh_model: int = 1  # tensor-parallel axis size
     mesh_seq: int = 1  # sequence-parallel axis size
 
     def __post_init__(self):
-        if self.mesh_model not in (None, 1):
-            raise NotImplementedError(
-                f"mesh_model={self.mesh_model}: tensor parallelism is not ported yet "
-                "(queued in ROADMAP.md); mesh_data and mesh_seq are")
-        for name in ("mesh_data", "mesh_seq"):
+        for name in ("mesh_data", "mesh_seq", "mesh_model"):
             if getattr(self, name) is not None and getattr(self, name) < 1:
                 raise ValueError(f"{name} must be at least 1; got {getattr(self, name)}")
 

@@ -46,9 +46,10 @@ def main(argv=None, device: DeviceLike = None) -> CSMTrainer:
     model_args, data_args, training_args = parse_args(argv)
     device = resolve_device(device)
 
-    # Multi-process data / sequence parallelism, the torchrun-DDP counterpart
-    # (reference ``train.py:414-425``): environment-guarded, a plain
-    # single-process run is untouched.
+    # Multi-process data / sequence / tensor parallelism, the torchrun-DDP
+    # counterpart (reference ``train.py:414-425``): environment-guarded, a
+    # plain single-process run is untouched.  The trainer lays the mesh from
+    # --mesh_data / --mesh_seq / --mesh_model.
     if maybe_init_distributed():
         import torch.distributed as dist
 
@@ -127,11 +128,13 @@ def main(argv=None, device: DeviceLike = None) -> CSMTrainer:
     trainer = CSMTrainer(config, params, training_args, train_dataset,
                          eval_dataset=eval_dataset, data_collator=collator, device=device)
     logger.info(
-        "Effective batch size: %d (per_device=%d × accum=%d × data_parallel=%d)",
+        "Effective batch size: %d (per_device=%d × accum=%d × data_parallel=%d), "
+        "model_parallel=%d",
         trainer.global_batch * training_args.gradient_accumulation_steps,
         training_args.per_device_train_batch_size,
         training_args.gradient_accumulation_steps,
         trainer.mesh.size("data") if trainer.mesh is not None else 1,
+        trainer.mesh.size("model") if trainer.mesh is not None else 1,
     )
     trainer.train()
     logger.info("Saving final model to %s", training_args.output_dir)

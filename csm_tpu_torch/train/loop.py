@@ -19,11 +19,15 @@ is checkpointed (``remat``).  The step updates the parameter tensors in
 place: the trainer trains the tensors it is given.
 
 With a mesh (:mod:`csm_tpu_torch.parallel`) every rank holds the full global
-batch and the replicated parameters; its forward computes its rows and
-frames and the gradient of its share of the global loss.  After the
-accumulation loop the gradients are summed over the ``data`` x ``seq``
-ranks in one flat bucket, then scaled, clipped and applied alike on every
-rank, so the replicas stay bitwise equal.
+batch and its parameters: whole, or under a ``model`` axis above 1 its
+shard of them (:func:`~csm_tpu_torch.parallel.shard_params`).  Its forward
+computes its rows and frames and the gradient of its share of the global
+loss.  After the accumulation loop the gradients are summed over the
+``data`` x ``seq`` ranks at its ``model`` index in one flat bucket, then
+scaled, clipped and applied alike on every rank of that group, so the
+replicas stay bitwise equal.  The global gradient norm sums the squares of
+the sharded leaves over ``model`` and counts each replicated leaf once, so
+it is the norm of the whole model's gradient on every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +45,14 @@ import torch
 from csm_tpu_torch.config import CSMConfig
 from csm_tpu_torch.device import DeviceLike, resolve_device
 from csm_tpu_torch.models import csm
-from csm_tpu_torch.parallel.collectives import all_reduce_flat_
+from csm_tpu_torch.parallel.collectives import all_gather_frames, all_reduce_flat_, all_reduce_sum
+from csm_tpu_torch.parallel.mesh import (
+    gather_params,
+    param_sharding,
+    shard_params,
+    sharded_dim,
+    take_shard,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -93,12 +104,14 @@ class Optimizer:
                           count - self.warmup_steps)
         return linear(self.learning_rate, 0.0, max(self.total_steps, 1), count)
 
-    def clip_(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def clip_(self, grads: List[torch.Tensor], sharded: Optional[List[bool]] = None,
+              group=None) -> torch.Tensor:
         """In place, as ``optax.clip_by_global_norm``: grads are kept when
-        their global norm is below ``max_grad_norm``, else each becomes ``(g
-        / norm) * max_grad_norm`` (no epsilon).  Returns the norm before
+        their global norm (:func:`global_norm`; ``sharded`` / ``group`` for
+        a model axis) is below ``max_grad_norm``, else each becomes ``(g /
+        norm) * max_grad_norm`` (no epsilon).  Returns the norm before
         clipping, in fp32."""
-        norm = global_norm(grads)
+        norm = global_norm(grads, sharded, group)
         keep = norm < self.max_grad_norm
         for g in grads:
             g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * self.max_grad_norm))
@@ -126,9 +139,22 @@ def make_optimizer(
     return Optimizer(learning_rate, total_steps, warmup_steps, weight_decay, max_grad_norm)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over all tensors, summed in fp32."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+def global_norm(tensors: List[torch.Tensor], sharded: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over all tensors, summed in fp32.  With
+    ``sharded`` (one flag per tensor) the flagged tensors are this rank's
+    shards over ``group`` (a ``model`` axis): their squares are summed over
+    the group, and each tensor not flagged, the same on every rank, counts
+    once."""
+    squares = [t.float().square().sum() for t in tensors]
+    if not sharded or not any(sharded):
+        return torch.stack(squares).sum().sqrt()
+    part = torch.stack([q for q, f in zip(squares, sharded) if f]).sum()
+    whole = [q for q, f in zip(squares, sharded) if not f]
+    total = all_reduce_sum(part, group)
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return total.sqrt()
 
 
 @dataclasses.dataclass
@@ -183,21 +209,28 @@ def make_train_step(
     With ``lora_cfg={"alpha": a, "rank": r}``, ``state.params`` holds only
     the adapters and ``base_params`` the frozen base they are merged into.
 
-    ``mesh``: a :class:`~csm_tpu_torch.parallel.Mesh` of ``data`` x ``seq``
-    ranks.  Every rank passes the same global batch; its forward takes its
-    rows and frames, and the summed gradients are those of the one-device
-    step on the global batch.  ``"auto"`` then looks at this rank's rows.
+    ``mesh``: a :class:`~csm_tpu_torch.parallel.Mesh`.  Every rank passes
+    the same global batch; its forward takes its rows and frames, and the
+    summed gradients are those of the one-device step on the global batch.
+    ``"auto"`` then looks at this rank's rows.  With a ``model`` axis above
+    1, ``state.params`` (or, with LoRA, ``base_params``) are this rank's
+    shards (:func:`~csm_tpu_torch.parallel.shard_params`); LoRA adapters
+    stay whole (:mod:`csm_tpu_torch.train.lora`).
     """
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(
             f"remat_policy must be 'auto', 'nothing', or 'dots'; got {remat_policy!r}"
         )
+    dims = leaf_dims(config, mesh) if lora_cfg is None else None
+    sharded = None if dims is None else [d is not None for d in dims]
+    model_group = None if mesh is None else mesh.group("model")
 
     def loss_fn(train_params, base_params, mb):
         if lora_cfg is not None:
             from csm_tpu_torch.train.lora import apply_lora
 
-            params = apply_lora(base_params, train_params, lora_cfg["alpha"], lora_cfg["rank"])
+            params = apply_lora(base_params, train_params, lora_cfg["alpha"], lora_cfg["rank"],
+                                mesh=mesh)
         else:
             params = train_params
         if compute_dtype is not None:
@@ -210,7 +243,7 @@ def make_train_step(
         return csm.forward(
             params, config, mb["input_ids"], mb["attention_mask"], labels=mb["labels"],
             max_decoder_frames=max_decoder_frames, use_flash=use_flash, remat=remat,
-            remat_policy=policy, sp_mesh=mesh,
+            remat_policy=policy, mesh=mesh,
         )
 
     def train_step(state: TrainState, base_params, batch: Dict[str, torch.Tensor]):
@@ -236,7 +269,7 @@ def make_train_step(
             all_reduce_flat_(grads, mesh.group("batch"))
         for g in grads:
             g.mul_(scale)
-        grad_norm = optimizer.clip_(grads)
+        grad_norm = optimizer.clip_(grads, sharded, model_group)
         for group in state.optimizer.param_groups:
             group["lr"] = optimizer.lr(state.step)
         state.optimizer.step()
@@ -253,6 +286,15 @@ def _detached(tree: dict) -> dict:
     return map_tree(lambda t: t.detach(), tree)
 
 
+def leaf_dims(config: CSMConfig, mesh) -> Optional[List[Optional[int]]]:
+    """For each leaf of the parameter tree, in :func:`flatten` order, the
+    dimension its shard is cut on over the mesh's ``model`` axis (None:
+    replicated); None without a ``model`` axis above 1."""
+    if mesh is None or mesh.size("model") == 1:
+        return None
+    return [sharded_dim(spec) for spec in flatten(param_sharding(mesh, config=config)).values()]
+
+
 class CSMTrainer:
     """HF-Trainer-equivalent orchestration (reference ``CSMTrainer`` +
     ``main``, ``train.py:303-512``) on one device or a mesh of ranks.
@@ -266,11 +308,17 @@ class CSMTrainer:
     storage).  ``device``: CUDA unless ``"cpu"`` is given.
 
     ``mesh``: a :class:`~csm_tpu_torch.parallel.Mesh`; by default one is made
-    from ``args.mesh_data`` / ``args.mesh_seq`` when a process group is up
-    (:func:`~csm_tpu_torch.parallel.maybe_init_distributed`).  The global
-    batch is then ``per_device_train_batch_size * data``; every rank loads
-    it whole and trains its rows and frames; ``evaluate`` returns the
-    global loss on every rank; rank 0 writes checkpoints and the model.
+    from ``args.mesh_data`` / ``args.mesh_seq`` / ``args.mesh_model`` when a
+    process group is up (:func:`~csm_tpu_torch.parallel.
+    maybe_init_distributed`).  The global batch is then
+    ``per_device_train_batch_size * data``; every rank loads it whole and
+    trains its rows and frames; ``evaluate`` returns the global loss on every
+    rank; rank 0 writes checkpoints and the model.  With a ``model`` axis
+    above 1 each rank trains its shard of ``params``
+    (:func:`~csm_tpu_torch.parallel.shard_params`; LoRA: of the frozen base,
+    the adapters stay whole); ``model_params``, ``save_model`` and the
+    checkpoints gather the shards (the AdamW moments too), so what is
+    written does not depend on the mesh, and a resume cuts it for this one.
     """
 
     def __init__(
@@ -340,16 +388,18 @@ class CSMTrainer:
         lora_cfg = ({"alpha": self.lora_alpha, "rank": self.lora_rank}
                     if self.lora_rank > 0 else None)
         params = map_tree(lambda t: t.to(self.device), params)
+        self._dims = leaf_dims(config, mesh)  # None unless a model axis cuts the params
         if lora_cfg is not None:
             from csm_tpu_torch.train.lora import init_lora_params
 
             targets = tuple(t for t in getattr(args, "lora_targets", "wq,wv").split(",") if t)
             gen = torch.Generator(device=self.device).manual_seed(args.seed)
-            self.base_params = _detached(params)
-            train_params = init_lora_params(gen, self.base_params, self.lora_rank, targets)
+            # Adapters shaped off the whole base, alike on every rank.
+            train_params = init_lora_params(gen, params, self.lora_rank, targets)
+            self.base_params = _detached(self._shard(params))
         else:
             self.base_params = None
-            train_params = params
+            train_params = self._shard(params)
         self.state = self.optimizer.init(train_params)
         self._step_fn = make_train_step(
             config, self.optimizer, self._max_dec, compute_dtype=compute_dtype,
@@ -361,15 +411,65 @@ class CSMTrainer:
 
     # ------------------------------------------------------------------
 
+    def _shard(self, tree: dict) -> dict:
+        """This rank's shard of a whole parameter tree (the tree without a
+        model axis)."""
+        return tree if self._dims is None else shard_params(tree, self.mesh, self.config)
+
+    def _gather(self, tree: dict) -> dict:
+        """The whole parameter tree from this rank's shard (every rank of the
+        model axis calls it)."""
+        return tree if self._dims is None else gather_params(tree, self.mesh, self.config)
+
     def model_params(self) -> dict:
-        """The current full parameters (adapters merged in LoRA mode),
-        detached."""
+        """The current whole parameters (adapters merged in LoRA mode),
+        detached; gathered over the model axis, so every rank calls it."""
         if self.lora_rank > 0:
             from csm_tpu_torch.train.lora import merge_lora
 
-            return merge_lora(self.base_params, _detached(self.state.params), self.lora_alpha,
-                              self.lora_rank)
+            return merge_lora(self._gather(self.base_params), _detached(self.state.params),
+                              self.lora_alpha, self.lora_rank)
+        return self._gather(_detached(self.state.params))
+
+    def _local_params(self) -> dict:
+        """This rank's parameters for a forward (adapters merged into its
+        shard in LoRA mode), detached."""
+        if self.lora_rank > 0:
+            from csm_tpu_torch.train.lora import apply_lora
+
+            with torch.no_grad():
+                return apply_lora(self.base_params, _detached(self.state.params),
+                                  self.lora_alpha, self.lora_rank, mesh=self.mesh)
         return _detached(self.state.params)
+
+    def _map_moments(self, opt: dict, fn) -> dict:
+        """An AdamW state dict with ``fn(moment, dim)`` applied to both
+        moments of each leaf cut on ``dim`` over the model axis."""
+        state = {i: {k: (fn(v, self._dims[i])
+                         if k in ("exp_avg", "exp_avg_sq") and self._dims[i] is not None else v)
+                     for k, v in st.items()}
+                 for i, st in opt["state"].items()}
+        return {**opt, "state": state}
+
+    def _whole_state(self) -> dict:
+        """``state.state_dict()`` with the parameters and the AdamW moments
+        gathered over the model axis (LoRA's adapters are whole already)."""
+        state = self.state.state_dict()
+        if self._dims is None or self.lora_rank > 0:
+            return state
+        group = self.mesh.group("model")
+        return {**state, "params": self._gather(_detached(state["params"])),
+                "opt_state": self._map_moments(
+                    state["opt_state"], lambda v, d: all_gather_frames(v, group, d))}
+
+    def _cut_state(self, saved: dict) -> dict:
+        """The inverse of :func:`_whole_state`: this rank's shard of a whole
+        saved state."""
+        if self._dims is None or self.lora_rank > 0:
+            return saved
+        return {**saved, "params": self._shard(saved["params"]),
+                "opt_state": self._map_moments(
+                    saved["opt_state"], lambda v, d: take_shard(v, d, self.mesh))}
 
     def _batches(self, skip_items: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """``[accum, global_batch, S, 33]`` numpy batches from the dataset.
@@ -475,7 +575,8 @@ class CSMTrainer:
         if step is None:
             logger.info("resume requested but no checkpoint found; starting fresh")
             return 0
-        self.state.load_state_dict(load_checkpoint(ckpt_dir, step, map_location=self.device))
+        self.state.load_state_dict(
+            self._cut_state(load_checkpoint(ckpt_dir, step, map_location=self.device)))
         logger.info("resumed from checkpoint at step %d", step)
         return step
 
@@ -531,7 +632,7 @@ class CSMTrainer:
         padded with label-masked copies of its own items, which add no
         targets."""
         bb_nll = dec_nll = bb_n = dec_n = 0.0
-        params = self.model_params()
+        params = self._local_params()
         buf = []
 
         def flush():
@@ -539,7 +640,7 @@ class CSMTrainer:
             b = self._to_device(self.data_collator(buf))
             out = csm.forward(params, self.config, b["input_ids"], b["attention_mask"],
                               labels=b["labels"], max_decoder_frames=self._max_dec,
-                              sp_mesh=self.mesh)
+                              mesh=self.mesh)
             bl, bn, dl, dn = (float(x) for x in (out.backbone_loss, out.backbone_targets,
                                                  out.decoder_loss, out.decoder_targets))
             bb_nll += bl * bn
@@ -569,7 +670,7 @@ class CSMTrainer:
     def save_checkpoint(self, step: int) -> None:
         from csm_tpu_torch.checkpoint import save_checkpoint
 
-        state = self.state.state_dict()
+        state = self._whole_state()
         state["step"] = step
         save_checkpoint(os.path.join(self.args.output_dir, "checkpoints"), step, state,
                         max_to_keep=self.args.save_total_limit)
@@ -579,7 +680,9 @@ class CSMTrainer:
         """Final save (reference ``trainer.save_model``, ``train.py:506-508``):
         ``config.json`` plus reference-layout ``model.safetensors``, which
         ``CSMModel.from_pretrained`` loads.  In LoRA mode the merged model is
-        written, and the adapters beside it under ``adapters/``."""
+        written, and the adapters beside it under ``adapters/``.  Every rank
+        calls it (the parameters are gathered over the model axis); rank 0
+        writes."""
         from csm_tpu_torch.checkpoint import (
             on_rank_zero,
             save_checkpoint,
@@ -591,26 +694,28 @@ class CSMTrainer:
             save_checkpoint(os.path.join(out, "adapters"), 0,
                             {"lora": _detached(self.state.params)}, max_to_keep=1)
 
+        params = self.model_params()
+
         def write():
             os.makedirs(out, exist_ok=True)
             self.config.to_json(os.path.join(out, "config.json"))
-            save_params_to_safetensors(os.path.join(out, "model.safetensors"),
-                                       self.model_params())
+            save_params_to_safetensors(os.path.join(out, "model.safetensors"), params)
 
         on_rank_zero(write)
         logger.info("model saved at %s", out)
 
 
 def _mesh_from_args(args):
-    """The mesh ``args.mesh_data`` / ``args.mesh_seq`` ask for over the
-    running process group; None for a single process (no group, no mesh
-    asked for)."""
+    """The mesh ``args.mesh_data`` / ``args.mesh_seq`` / ``args.mesh_model``
+    ask for over the running process group; None for a single process (no
+    group, no mesh asked for)."""
     import torch.distributed as dist
 
     from csm_tpu_torch.parallel import make_mesh
 
     data = getattr(args, "mesh_data", None)
     seq = int(getattr(args, "mesh_seq", 1) or 1)
-    if not dist.is_initialized() and data in (None, 1) and seq == 1:
+    model = int(getattr(args, "mesh_model", 1) or 1)
+    if not dist.is_initialized() and data in (None, 1) and seq == 1 and model == 1:
         return None
-    return make_mesh(data=data, model=int(getattr(args, "mesh_model", 1) or 1), seq=seq)
+    return make_mesh(data=data, model=model, seq=seq)

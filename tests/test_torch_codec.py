@@ -292,3 +292,51 @@ def test_rvq_decode_clamps_codes_past_the_codebook():
     np.testing.assert_allclose(
         mimi.rvq_decode(torch.from_numpy(books), torch.from_numpy(clipped)).numpy(), want,
         rtol=1e-6, atol=1e-6)
+
+
+def test_convolutions_run_without_tf32_whatever_the_caller_set(monkeypatch):
+    """Every Mimi pass (offline encode and decode, streaming encode and
+    decode) runs its convolutions with ``cudnn.allow_tf32`` off, and leaves
+    the caller's setting as it was, also when blocks overlap across
+    threads; the card's codes drifted under the default TF32."""
+    import threading
+
+    jcfg, jp, cfg, tp = _pair()
+    codec = MimiCodec(cfg, tp, device="cpu")
+    seen = []
+    plain = {name: getattr(torch.nn.functional, name) for name in ("conv1d", "conv_transpose1d")}
+
+    def recording(name):
+        def conv(*args, **kw):
+            seen.append(torch.backends.cudnn.allow_tf32)
+            return plain[name](*args, **kw)
+        return conv
+
+    for name in plain:
+        monkeypatch.setattr(torch.nn.functional, name, recording(name))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    wave = _wave(1920 * 2, seed=5, B=1)
+    codes = codec.encode(wave[0, 0])
+    codec.decode(codes)
+    StreamingMimiEncoder(codec).feed(wave)
+    StreamingMimiDecoder(codec).feed(codes[None, :, :1])
+    assert seen and not any(seen)
+    assert torch.backends.cudnn.allow_tf32 is True
+
+    # Two threads inside at once: the setting comes back only after both.
+    inside, release = threading.Event(), threading.Event()
+
+    def hold():
+        with mimi.fp32_convolutions:
+            inside.set()
+            release.wait(10)
+
+    t = threading.Thread(target=hold)
+    t.start()
+    assert inside.wait(10)
+    with mimi.fp32_convolutions:
+        pass
+    assert torch.backends.cudnn.allow_tf32 is False
+    release.set()
+    t.join(10)
+    assert not t.is_alive() and torch.backends.cudnn.allow_tf32 is True

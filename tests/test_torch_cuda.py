@@ -609,6 +609,141 @@ def test_two_rank_gloo_step_on_one_card_matches_one_process(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: K3 / K5a / K5b on head shards
+# ---------------------------------------------------------------------------
+
+
+def _tp_forward_rank(seed):
+    """One rank of a model=2 mesh on the shared card: the bf16 cached prefill
+    of this rank's shards with the flash kernel (2 query / 1 KV heads a
+    rank) and with the plain attention, K3's launches, and 2 greedy frames
+    generated on the shards."""
+    from csm_tpu_torch.generation import generate_compiled
+    from csm_tpu_torch.models import llama
+    from csm_tpu_torch.parallel import make_mesh, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = _config()
+    mesh = make_mesh(data=1, model=2)
+    params = shard_params(CSMModel(cfg, dtype=torch.bfloat16, seed=seed, device="cuda").params,
+                          mesh, cfg)
+    b = _train_batch(cfg, 1, 2, 48, seed=seed)
+    ids, mask = b["input_ids"][0], b["attention_mask"][0].float()
+    nkv = llama.local_heads(params["backbone"]["layers"], cfg.backbone)[1]
+    logits = {}
+    with torch.no_grad():
+        for flash in (True, False):
+            cache = llama.KVCache.create(cfg.backbone, 2, 64, dtype=torch.bfloat16, device="cuda",
+                                         num_kv_heads=nkv)
+            flash_fwd.launches = 0
+            out = csm.forward(params, cfg, ids, mask, cache=cache, flash_prefill=flash,
+                              return_all_logits=True, mesh=mesh)
+            torch.cuda.synchronize()
+            logits[flash] = (out.logits.float(), flash_fwd.launches)
+    flash_fwd.launches = 0
+    frames, _ = generate_compiled(params, cfg, ids, mask, 48, max_new_frames=2, greedy=True,
+                                  stop_on_all_zeros=False, mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(kv_heads=nkv, flash=logits[True][0], plain=logits[False][0],
+                live=(mask.sum(-1) > 0).int().cumsum(1) > 0,
+                launches=(logits[True][1], logits[False][1], flash_fwd.launches), frames=frames)
+
+
+def test_tp_prefill_runs_k3_on_head_shards(cuda):
+    """Two ranks of a model=2 mesh on the card over gloo: each prefill runs
+    K3 once per layer on its 2 query / 1 KV heads, and its logits on the
+    rows that see a valid key (the kernel and the plain attention treat a
+    row of padding differently) are within phase 2's bf16 limit (relative
+    RMS 2e-2) of the plain attention on the same shards; both ranks' logits
+    and greedy frames are bitwise equal (the row-parallel sums reach every
+    rank alike)."""
+    from csm_tpu_torch.parallel.launch import launch
+
+    res = launch(_tp_forward_rank, 2, 6, timeout=600.0)
+    L = _config().backbone.num_hidden_layers
+    for rec in res:
+        assert rec["kv_heads"] == 1
+        assert rec["launches"] == (L, 0, L)
+        live = torch.as_tensor(rec["live"])  # rows that see a valid key
+        flash, plain = (torch.as_tensor(rec[k])[live] for k in ("flash", "plain"))
+        assert _rel_rms(flash, plain) <= 2e-2
+    np.testing.assert_array_equal(res[0]["flash"], res[1]["flash"])
+    np.testing.assert_array_equal(res[0]["frames"], res[1]["frames"])
+
+
+def _tp_train_rank(seed):
+    """One rank of a model=2 mesh on the shared card: one fp32 train step on
+    its shards through K3 / K5a / K5b at its head shard, its metrics,
+    launches and the gathered gradients the update used."""
+    from csm_tpu_torch.parallel import gather_params, make_mesh, shard_params
+    from csm_tpu_torch.train.loop import map_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _config()
+    mesh = make_mesh(data=1, model=2)
+    batch = _train_batch(cfg, 1, 2, 64, seed=seed)
+    opt = make_optimizer(1e-3, 4)
+    state = opt.init(shard_params(CSMModel(cfg, seed=5, device="cuda").params, mesh, cfg))
+    step = make_train_step(cfg, opt, 24, remat=True, remat_policy="dots", mesh=mesh)
+    flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    state, m = step(state, None, batch)
+    torch.cuda.synchronize()
+    grads = gather_params(map_tree(lambda p: p.grad, state.params), mesh, cfg)
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                launches=(flash_fwd.launches, fa.flash_bwd_dq.launches,
+                          fa.flash_bwd_dkv.launches),
+                grads=flatten(grads))
+
+
+def test_tp_train_step_with_the_kernels_matches_one_process(cuda):
+    """Two ranks of a model=2 mesh on the card over gloo, fp32: K3 / K5a /
+    K5b once per layer on each rank's head shard, the losses and grad norm
+    of the one-process step (rtol 1e-4) and each gathered gradient within
+    1e-4 relative RMS of the one-process gradient."""
+    from csm_tpu_torch.parallel.launch import launch
+
+    res = launch(_tp_train_rank, 2, 13, timeout=600.0)
+    cfg = _config()
+    opt = make_optimizer(1e-3, 4)
+    state = opt.init(CSMModel(cfg, seed=5, device=cuda).params)
+    step = make_train_step(cfg, opt, 24, remat=True, remat_policy="dots")
+    state, m = step(state, None, _train_batch(cfg, 1, 2, 64, seed=13))
+    L = cfg.backbone.num_hidden_layers
+    for rec in res:
+        assert rec["launches"] == (L, L, L)
+        for k, v in m.items():
+            assert abs(rec["metrics"][k] - float(v)) <= 1e-4 * abs(float(v)), k
+        for k, p in flatten(state.params).items():
+            g, r = torch.as_tensor(rec["grads"][k]).float(), p.grad.cpu().float()
+            assert (g - r).norm() <= 1e-4 * r.norm(), k
+
+
+def test_mimi_encode_ignores_the_default_tf32(cuda):
+    """The card's Mimi encode and decode are the same bits with
+    ``cudnn.allow_tf32`` on (torch's default) and off: the codec runs its
+    convolutions in fp32 itself (under TF32 its later residual codebooks
+    drifted from the CPU's encode)."""
+    from csm_tpu_torch.codec import MimiCodec, MimiCodecConfig, random_mimi_params
+
+    cfg = MimiCodecConfig()
+    codec = MimiCodec(cfg, random_mimi_params(cfg, seed=0), device=cuda)
+    wave = (0.1 * np.random.default_rng(0).standard_normal(1920 * 6)).astype(np.float32)
+    before = torch.backends.cudnn.allow_tf32
+    out = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            codes = codec.encode(wave)
+            out[tf32] = (codes, codec.decode(codes))
+            assert torch.backends.cudnn.allow_tf32 is tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    np.testing.assert_array_equal(out[True][1], out[False][1])
+
+
+# ---------------------------------------------------------------------------
 # The bf16 tensor-core kernels (K3, K5b): ragged shapes, determinism, HGMMA
 # ---------------------------------------------------------------------------
 

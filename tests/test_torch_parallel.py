@@ -210,12 +210,29 @@ def test_launch_fails_on_a_rank_error_or_a_hang(how, match, timeout):
     assert time.monotonic() - t0 < timeout + 15.0
 
 
+def _mesh_rank(data, seq, model):
+    mesh = make_mesh(data=data, seq=seq, model=model)
+    return dict(shape=mesh.shape, coords=mesh.coords,
+                members={a: (None if g is None else dist.get_process_group_ranks(g))
+                         for a, g in mesh.groups.items()})
+
+
 def test_mesh_coords_and_unported_axes():
+    """The rank order of every axis, and make_mesh with a model axis: the
+    model group joins the ranks that share data and seq, the batch group
+    those that share the model index."""
     assert [pmesh.mesh_coords(r, 2, 2, 1) for r in range(4)] == [
         {"data": 0, "seq": 0, "model": 0}, {"data": 0, "seq": 1, "model": 0},
         {"data": 1, "seq": 0, "model": 0}, {"data": 1, "seq": 1, "model": 0}]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(data=1, model=2)
+    assert [pmesh.mesh_coords(r, 2, 1, 2) for r in range(4)] == [
+        {"data": 0, "seq": 0, "model": 0}, {"data": 0, "seq": 0, "model": 1},
+        {"data": 1, "seq": 0, "model": 0}, {"data": 1, "seq": 0, "model": 1}]
+    res = launch(_mesh_rank, 4, 2, 1, 2, timeout=LAUNCH_TIMEOUT)
+    for r, rec in enumerate(res):
+        assert rec["shape"] == {"data": 2, "seq": 1, "model": 2}
+        assert rec["members"]["model"] == [r - r % 2, r - r % 2 + 1]
+        assert rec["members"]["batch"] == rec["members"]["data"] == [r % 2, r % 2 + 2]
+        assert rec["members"]["seq"] is None
     if not dist.is_initialized():
         with pytest.raises(RuntimeError, match="process group"):
             make_mesh(data=2)

@@ -457,15 +457,16 @@ def test_args_defaults_and_unported_mesh(tmp_path):
     assert targs.gradient_checkpointing is False and targs.save_total_limit == 3
     assert targs.gradient_checkpointing_policy == "auto"
     assert (targs.mesh_data, targs.mesh_seq, targs.mesh_model) == (None, 1, 1)
-    # Data and sequence parallelism are ported; tensor parallelism is not.
+    # Data, sequence and tensor parallelism are all ported.
     _, _, targs = parse_args(["--mesh_data", "2", "--mesh_seq", "2"])
     assert (targs.mesh_data, targs.mesh_seq) == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainingArguments(mesh_model=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_args(["--mesh_model", "2"])
+    assert TrainingArguments(mesh_model=2).mesh_model == 2
+    _, _, targs = parse_args(["--mesh_model", "2"])
+    assert (targs.mesh_data, targs.mesh_seq, targs.mesh_model) == (None, 1, 2)
     with pytest.raises(ValueError, match="mesh_seq"):
         TrainingArguments(mesh_seq=0)
+    with pytest.raises(ValueError, match="mesh_model"):
+        TrainingArguments(mesh_model=0)
 
 
 def test_report_to_unknown_raises(tmp_path):

@@ -188,3 +188,40 @@ def test_module_entry_point_prints_help():
     for flag in ("--train_file", "--output_dir", "--bf16", "--pad_to_multiple",
                  "--amortization_ratio", "--mesh_data"):
         assert flag in res.stdout, flag
+
+
+def _cli_rank(argv, mimi_files):
+    """``cli.main(argv)`` on a spawned rank, the tokenizer and codec loaders
+    replaced as in the tests above."""
+    mcfg, mp = mimi_files
+    cli.load_llama3_tokenizer = StubTokenizer
+    cli.load_mimi = lambda num_codebooks, device: MimiCodec(mcfg, mp, device=device)
+    trainer = cli.main(argv, device="cpu")
+    out = argv[argv.index("--output_dir") + 1]
+    saved = flatten(CSMModel.from_pretrained(out, device="cpu").params)
+    return dict(log=trainer._metrics_log, mesh=dict(trainer.mesh.shape),
+                local_wq=tuple(trainer.state.params["backbone"]["layers"]["wq"].shape),
+                saved_equal=all(torch.equal(saved[k], v)
+                                for k, v in flatten(trainer.model_params()).items()))
+
+
+def test_cli_trains_on_a_model_axis(files, tmp_path, monkeypatch):
+    """``--mesh_model 2`` on two spawned ranks: the trainer's mesh is
+    (1, 1, 2) and each rank trains its shard; the losses equal the
+    one-process CLI's (rtol 1e-5), and the saved model is the gathered
+    parameters bit for bit."""
+    from csm_tpu_torch.parallel.launch import launch
+
+    res = launch(_cli_rank, 2, _argv(files, str(tmp_path / "tp"), "--mesh_model", "2"),
+                 files["mimi"], timeout=120.0)
+    monkeypatch.setattr(cli, "load_llama3_tokenizer", StubTokenizer)
+    monkeypatch.setattr(cli, "load_mimi",
+                        lambda num_codebooks, device: _port_codec(files, device))
+    one = cli.main(_argv(files, str(tmp_path / "one")), device="cpu")
+    for rec in res:
+        assert rec["mesh"] == {"data": 1, "seq": 1, "model": 2}
+        assert rec["local_wq"] == (2, 64, 32) and rec["saved_equal"]
+        assert len(rec["log"]) == len(one._metrics_log) == 1
+        for k in ("loss", "backbone_loss", "decoder_loss"):
+            np.testing.assert_allclose(rec["log"][0][k], one._metrics_log[0][k], rtol=1e-5,
+                                       err_msg=k)
