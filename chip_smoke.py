@@ -126,11 +126,35 @@ Phases, each printed as it runs; any failure exits non-zero:
    one-process plain bf16 path (tokens gated where the smallest c0 top-2
    gap > 0.5), both ranks' tokens equal, K3 once per layer a rank.
 
+16. (run after phase 12, on phase 6's model and checkpoint) the last
+   modules at CSM-1B width: ``csm_tpu_torch.entry.entry()``'s forward (16 K3
+   launches, finite logits); the same forward on phase 6's weights under
+   ``set_attention_impl("auto" / "flash" / "xla")`` (16 / 16 / 0 K3
+   launches, auto bitwise equal to flash, xla within phase 3's gross 5e-2
+   relative RMS) and a child interpreter started with
+   ``CSM_TPU_ATTENTION=xla`` (no K3; "auto" in the same child the control);
+   ``utils.measure`` (prefill ms by CUDA events at S = 128, 512 and 2048
+   beside the prefill's model FLOPs, its FLOPs bound, gated, and the
+   backbone weights' byte bound; the model-FLOPs share of the data sheet's
+   989 TFLOP/s; one profiled prefill at each S: device busy share, kernels,
+   the host's waits and copies); ``utils.profiling`` (``trace()`` around an 8-frame
+   ``quantize(bits=4)`` generate whose kernel events must name K3, K1q and
+   K2; ``FrameTimer`` over three 16-frame calls; ``enable_nan_checks`` on a
+   CUDA tensor); ``utils.warmup`` in a fresh child (2 runs launching K3,
+   K1q-4 and K2, every library loaded, no nvcc, the first real 16-frame call
+   within 2x of the second) beside a cold child without it; the example
+   scripts in-process (``examples.generate`` int4 offline and streamed,
+   frames equal and PCM within phase 12's gate, int8; ``examples.serve``
+   with 4 slots and three texts; WAV lengths, K3 / K1q-8 / K1q-4 / K2
+   launched) with random full-width Mimi weights in the HF layout, phase
+   14's tokenizer stand-in and a 24 kHz context clip; and
+   ``dryrun_multichip(4)`` on four ranks sharing ``cuda:0``.
+
 Phases 12 and 14 each also read Mimi once with ``cudnn.allow_tf32`` at
 torch's default (True): streamed vs offline PCM, and card vs CPU codes,
 against their phase's gate.
 
-Phases 7-10 and 12-15 print their seconds.
+Phases 7-10 and 12-16 print their seconds.
 
 The full record of the run goes to ``chiprun_out/chip_smoke.json``.
 
@@ -967,6 +991,7 @@ def specdec_rounds(model, ids, mask, n_frames: int) -> dict:
 
 
 E2E_FRAMES = 16
+E2E_CKPT = os.path.join(REPO, "csm_tpu_torch", "_build", "smoke_ckpt")
 E2E_RUNS = (("plain", 1), ("plain", 8), ("exact", 1), ("exact", 8),
             ("quantize", 1), ("quantize", 8), ("quantize", 32),
             ("quantize4", 1), ("quantize4", 8), ("quantize4", 32))
@@ -978,15 +1003,12 @@ def end_to_end(model, results):
     from csm_tpu_torch import CSMModel
 
     cfg = model.config
-    ckpt = os.path.join(REPO, "csm_tpu_torch", "_build", "smoke_ckpt")
-    try:
-        t0 = time.perf_counter()
-        model.save_pretrained(ckpt)
-        t1 = time.perf_counter()
-        loaded = CSMModel.from_pretrained(ckpt, dtype=torch.bfloat16)
-        t2 = time.perf_counter()
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    # Kept for phase 16, which removes it.
+    t0 = time.perf_counter()
+    model.save_pretrained(E2E_CKPT)
+    t1 = time.perf_counter()
+    loaded = CSMModel.from_pretrained(E2E_CKPT, dtype=torch.bfloat16)
+    t2 = time.perf_counter()
     flat_a = _leaves(model.params)
     flat_b = _leaves(loaded.params)
     same = flat_a.keys() == flat_b.keys() and all(torch.equal(flat_a[k], flat_b[k]) for k in flat_a)
@@ -3217,6 +3239,448 @@ def tensor_parallelism(gen, sp_refs: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the last modules (entry, the attention switch, profiling,
+# measure, warm-up, the example scripts, the multi-rank dryrun)
+# ---------------------------------------------------------------------------
+
+TOOLING_DIR = os.path.join(REPO, "csm_tpu_torch", "_build", "tooling_smoke")
+ENTRY_LAUNCHES = 16  # one K3 a backbone layer
+SWITCH_S = 128
+# Phase 3's gross gate: the plain attention against the flash kernel.
+SWITCH_RMS_TOL = 5e-2
+MEASURE_S = (128, 512, 2048)
+TRACE_FRAMES, TIMER_FRAMES, TIMER_CALLS = 8, 16, 3
+TRACED = ("flash_fwd_wgmma_kernel", "bbq_step_kernel", "fused_decoder_kernel")
+WARM_FRAMES, WARM_PROMPT = 16, 64
+# A warmed first call against the second: a first call that still paid for
+# a build, a library load or the allocator's growth takes several times as
+# long.
+WARM_FIRST_RATIO = 2.0
+EX_FRAMES = 16
+EX_TEXTS = ("The parcel came this morning.", "Shall we take the early train?",
+            "It was loud, and far too short.")
+CHILD_TIMEOUT = 300.0
+
+# Run in a child interpreter with CSM_TPU_ATTENTION=xla: a forward of a
+# small bf16 model on the card whose shapes the flash kernels take, under
+# the switch read at import and then under "auto" (the control).
+_XLA_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from csm_tpu_torch import CSMConfig
+from csm_tpu_torch.models import csm
+from csm_tpu_torch.ops import attention
+from csm_tpu_torch.ops.flash_attention import flash_fwd
+cfg = CSMConfig.tiny()
+params = csm.init_params(cfg, 0, torch.bfloat16, "cuda")
+ids = torch.ones((1, 16, 33), dtype=torch.long, device="cuda")
+mask = torch.ones((1, 16, 33), dtype=torch.float32, device="cuda")
+read = attention._impl
+launches = {}
+for impl in (read, "auto"):
+    attention.set_attention_impl(impl)
+    before = flash_fwd.launches
+    csm.forward(params, cfg, ids, mask)
+    torch.cuda.synchronize()
+    launches[impl] = flash_fwd.launches - before
+print(json.dumps({"impl": read, "launches": launches, "layers": cfg.backbone.num_hidden_layers}))
+"""
+
+# Run in a child interpreter: phase 6's checkpoint under quantize(bits=4),
+# with ("warm") or without ("cold") ``warmup_generation`` first, then two
+# 16-frame greedy calls at B = 1 from phase 6's prompt; every nvcc started
+# (by _build) is recorded.
+_WARM_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+from csm_tpu_torch import CSMModel
+from csm_tpu_torch.ops import _build
+from csm_tpu_torch.utils.warmup import warmup_generation
+mode, ckpt, frames, S = sys.argv[2], sys.argv[3], int(sys.argv[4]), int(sys.argv[5])
+nvcc = []
+start = _build._start
+def watched(name):
+    job = start(name)
+    if job is not None:
+        nvcc.append(name)
+    return job
+_build._start = watched
+t0 = time.perf_counter()
+model = CSMModel.from_pretrained(ckpt, dtype=torch.bfloat16).quantize(bits=4)
+torch.cuda.synchronize()
+rec = dict(mode=mode, load_s=time.perf_counter() - t0)
+wrappers = chip_smoke.launch_counters()
+for w in wrappers.values():
+    w.launches = 0
+if mode == "warm":
+    t0 = time.perf_counter()
+    rec["runs"] = warmup_generation(model.params, model.config, batch_sizes=(1, 8),
+                                    prompt_buckets=(S,), frame_budgets=(frames,),
+                                    qdec=model._qdec, qbb=model._qbb, qsb=model._qsb)
+    rec["warmup_s"] = time.perf_counter() - t0
+    rec["warmup_launches"] = {k: w.launches for k, w in wrappers.items()}
+    rec["loaded_after_warmup"] = sorted(_build._loaded)
+rec["nvcc_before_calls"] = list(nvcc)
+ids, mask = chip_smoke.prompt(model.config, 1, S, seed=1)
+calls = []
+for _ in range(2):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, mask, max_new_frames=frames, greedy=True, stop_on_all_zeros=False)
+    torch.cuda.synchronize()
+    calls.append(1e3 * (time.perf_counter() - t0))
+rec.update(call_ms=calls, frames=list(out.shape), nvcc=nvcc)
+print(json.dumps(rec))
+"""
+
+
+def _child(code: str, *args, env=None) -> dict:
+    """Run ``code`` in a fresh interpreter; its last stdout line as JSON."""
+    res = subprocess.run([sys.executable, "-c", code, REPO, *map(str, args)], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=CHILD_TIMEOUT)
+    if res.returncode != 0:
+        raise RuntimeError(f"child process failed (rc={res.returncode}):\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _counts(wrappers) -> dict:
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def _zero(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def entry_and_switch(params, cfg) -> dict:
+    """16a: ``entry()``'s CSM-1B forward, then the same uncached forward on
+    phase 6's weights under each value of the attention switch, and a child
+    interpreter started with ``CSM_TPU_ATTENTION=xla``."""
+    import torch
+
+    from csm_tpu_torch.entry import entry
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.ops import attention
+
+    wrappers = launch_counters()
+    fn, args = entry()
+    _zero(wrappers)
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    n_entry = wrappers["flash_fwd"].launches
+    del args
+    ok = (tuple(logits.shape) == (1, cfg.audio_vocab_size)
+          and bool(torch.isfinite(logits.float()).all()))
+    log(f"entry(): logits {tuple(logits.shape)} {logits.dtype}, finite {ok}, K3 launches {n_entry}")
+    check(ok, f"entry(): logits {tuple(logits.shape)}, want finite (1, {cfg.audio_vocab_size})")
+    check(n_entry == ENTRY_LAUNCHES, f"entry(): {n_entry} K3 launches, want {ENTRY_LAUNCHES}")
+
+    ids, mask = (torch.as_tensor(x, device="cuda") for x in prompt(cfg, 1, SWITCH_S, seed=1))
+    out, launches = {}, {}
+    try:
+        for impl in ("auto", "flash", "xla"):
+            attention.set_attention_impl(impl)
+            before = wrappers["flash_fwd"].launches
+            with torch.no_grad():
+                out[impl] = csm.forward(params, cfg, ids, mask).logits.float()
+            torch.cuda.synchronize()
+            launches[impl] = wrappers["flash_fwd"].launches - before
+    finally:
+        attention.set_attention_impl("auto")
+    same = torch.equal(out["auto"], out["flash"])
+    rms = rel_rms(out["xla"], out["auto"])
+    log(f"attention switch, CSM-1B forward at S = {SWITCH_S}: K3 launches {launches}; auto "
+        f"bitwise equal to flash: {same}; xla vs auto relative RMS {rms:.3e} (limit "
+        f"{SWITCH_RMS_TOL})")
+    check(launches == {"auto": ENTRY_LAUNCHES, "flash": ENTRY_LAUNCHES, "xla": 0},
+          f"attention switch: K3 launches {launches}, want 16 / 16 / 0")
+    check(same, "attention switch: auto and flash logits differ")
+    check(rms <= SWITCH_RMS_TOL, f"attention switch: xla vs auto relative RMS {rms:.3e}")
+    child = _child(_XLA_CHILD, env={**os.environ, "CSM_TPU_ATTENTION": "xla"})
+    log(f"child with CSM_TPU_ATTENTION=xla: switch read {child['impl']!r}, K3 launches "
+        f"{child['launches']} (auto the control)")
+    check(child["impl"] == "xla" and child["launches"] == {"xla": 0, "auto": child["layers"]},
+          f"child with CSM_TPU_ATTENTION=xla: {child}")
+    return dict(entry_launches=n_entry, switch_launches=launches, auto_equals_flash=same,
+                xla_rel_rms=rms, child=child,
+                launches=dict(flash_fwd=n_entry + launches["auto"] + launches["flash"]))
+
+
+def measure_prefill(params, cfg) -> dict:
+    """16b: ``prefill_ms_on_device`` and ``prefill_flops`` at each
+    ``MEASURE_S``, the model-FLOPs share of the data sheet's peak, each time
+    beside its bounds (gated at the FLOPs bound)."""
+    from csm_tpu_torch.utils.measure import (H100_BF16_DENSE_FLOPS, prefill_flops,
+                                             prefill_ms_on_device)
+
+    wrappers = launch_counters()
+    _zero(wrappers)
+    rows = {}
+    for S in MEASURE_S:
+        ms = prefill_ms_on_device(params, cfg, S)
+        flops = prefill_flops(None, cfg, S)
+        same = flops == prefill_flops(params, cfg, S)
+        flops_ms = flops / H100_BF16_DENSE_FLOPS * 1e3
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in params["backbone"]["layers"].values())
+        bytes_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+        share = flops / (ms * 1e-3 * H100_BF16_DENSE_FLOPS)
+        rows[S] = dict(ms=ms, flops=flops, flops_bound_ms=flops_ms, weight_bytes_bound_ms=bytes_ms,
+                       model_flops_share=share)
+        log(f"prefill S = {S}: {ms:.3f} ms (median of 3, CUDA events), {flops / 1e12:.3f} TFLOP "
+            f"-> FLOPs bound {flops_ms:.3f} ms, the backbone weights' bytes {bytes_ms:.3f} ms; "
+            f"model-FLOPs share {share:.1%}")
+        check(same, f"prefill_flops at S = {S}: the shapes' count differs from the params'")
+        check(ms >= flops_ms, f"prefill S = {S}: {ms:.3f} ms is under its FLOPs bound "
+              f"{flops_ms:.3f} ms (the count or the clock is wrong)")
+    launches = _counts(wrappers)
+    want = len(MEASURE_S) * 4 * ENTRY_LAUNCHES  # a warm-up call and 3 timed ones each
+    check(launches["flash_fwd"] == want, f"measure: {launches['flash_fwd']} K3 launches, want {want}")
+    for S in MEASURE_S:
+        rows[S]["profile"] = profile_prefill(params, cfg, S)
+    return dict(by_S=rows, launches=launches)
+
+
+# Host calls that wait for the card or copy to it, counted in a profiled
+# prefill.
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
+
+
+def profile_prefill(params, cfg, S: int) -> dict:
+    """Where the time of the prefill ``prefill_ms_on_device`` times goes:
+    device busy share and kernels under ``torch.profiler``, and the host's
+    waits and copies."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from csm_tpu_torch.models import csm
+    from csm_tpu_torch.models.llama import KVCache
+
+    rng = np.random.default_rng(0)
+    ids = np.zeros((1, S, cfg.frame_width), np.int64)
+    ids[..., -1] = rng.integers(1, cfg.text_vocab_size, (1, S))
+    mask = (ids > 0).astype(np.float32)
+    ids, mask = torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda")
+    cache = KVCache.create(cfg.backbone, 1, ((S + 128 + 127) // 128) * 128,
+                           dtype=params["backbone"]["final_norm"].dtype, device="cuda")
+    with torch.no_grad():
+        csm.forward(params, cfg, ids, mask, cache=cache, flash_prefill=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            csm.forward(params, cfg, ids, mask, cache=cache, flash_prefill=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rec = device_breakdown(prof, ("flash_fwd",), f"prefill S = {S}", wall_ms, 1, "prefill")
+    waits = {n: sum(e.name == n for e in prof.events()) for n in HOST_WAITS}
+    log(f"  prefill S = {S}: host waits and copies {waits}")
+    return dict(rec, host_waits=waits)
+
+
+def profiling_tools(model, cfg, e2e: dict) -> dict:
+    """16c: ``trace()`` around an 8-frame ``quantize(bits=4)`` generate
+    (its kernel events must name K3, K1q and K2), ``FrameTimer`` over three
+    16-frame calls beside phase 6's reading, and ``enable_nan_checks`` on a
+    CUDA tensor."""
+    import glob
+
+    import torch
+
+    from csm_tpu_torch.utils import FrameTimer, enable_nan_checks, trace
+    from csm_tpu_torch.utils.profiling import sync
+
+    wrappers = launch_counters()
+    model.quantize(bits=4)
+    ids, mask = prompt(cfg, 1, 64, seed=1)
+    kw = dict(greedy=True, stop_on_all_zeros=False)
+    model.generate(ids, mask, max_new_frames=2, **kw)
+    shutil.rmtree(TOOLING_DIR, ignore_errors=True)
+    _zero(wrappers)
+    with trace(TOOLING_DIR, name="generate"):
+        model.generate(ids, mask, max_new_frames=TRACE_FRAMES, **kw)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(TOOLING_DIR, "*.pt.trace.json"))
+    names, region = set(), False
+    if len(files) == 1:
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e["name"] for e in events if e.get("cat") == "kernel"}
+        region = any(e.get("name") == "generate" for e in events)
+    seen = {k: sum(k in n for n in names) > 0 for k in TRACED}
+    log(f"trace(): {len(files)} file(s), {len(names)} distinct kernels; port kernels named {seen}")
+    check(len(files) == 1 and all(seen.values()) and region,
+          f"trace(): files {files}, port kernels named {seen}")
+
+    timer = FrameTimer()
+    for _ in range(TIMER_CALLS):
+        with timer.step(frames=TIMER_FRAMES):
+            frames = model.generate(ids, mask, max_new_frames=TIMER_FRAMES, **kw)
+            sync(model.params)
+    summary = timer.summary()
+    check(frames.shape == (1, TIMER_FRAMES, cfg.audio_num_codebooks),
+          f"FrameTimer run: frames {frames.shape}")
+    log(f"FrameTimer over {TIMER_CALLS} {TIMER_FRAMES}-frame quantize(bits=4) B=1 calls: "
+        f"{summary['frames_per_sec']:.2f} frames/s, p50 {summary['p50_step_ms']:.1f} ms, real-time "
+        f"factor {summary['audio_realtime_factor']:.2f} (phase 6: "
+        f"{e2e['quantize4_B1']['frames_per_s']:.2f} frames/s, prefill included)")
+    launches = _counts(wrappers)
+
+    x = torch.tensor([-1.0, 4.0], device="cuda")
+    raised = False
+    try:
+        enable_nan_checks(True)
+        try:
+            torch.log(x)
+        except FloatingPointError:
+            raised = True
+    finally:
+        enable_nan_checks(False)
+    after = bool(torch.isnan(torch.log(x)).any())
+    log(f"enable_nan_checks: raised on log(-1) on the card {raised}; after off, NaN returned {after}")
+    check(raised and after, f"enable_nan_checks: raised {raised}, returned NaN after off {after}")
+    shutil.rmtree(TOOLING_DIR, ignore_errors=True)
+    return dict(trace_kernels=seen, n_trace_kernels=len(names), frame_timer=summary,
+                nan_raised=raised, nan_after_off=after, launches=launches)
+
+
+def warmup_children() -> dict:
+    """16d: the warm-up in a fresh child process (2 runs, K3 / K1q-4 / K2
+    launched, every kernel library loaded, no nvcc), its first real call
+    against its second (gated), and a cold child without it (a reading)."""
+    warm = _child(_WARM_CHILD, "warm", E2E_CKPT, WARM_FRAMES, WARM_PROMPT)
+    cold = _child(_WARM_CHILD, "cold", E2E_CKPT, WARM_FRAMES, WARM_PROMPT)
+    wl = warm["warmup_launches"]
+    first, second = warm["call_ms"]
+    log(f"warm-up child: {warm['runs']} runs in {warm['warmup_s']:.2f} s, launches {wl}, "
+        f"libraries loaded {warm['loaded_after_warmup']}, nvcc started {warm['nvcc']}; then "
+        f"{WARM_FRAMES}-frame calls {first:.1f} ms, {second:.1f} ms (ratio {first / second:.2f}, "
+        f"limit {WARM_FIRST_RATIO})")
+    c1, c2 = cold["call_ms"]
+    log(f"cold child (no warm-up): {c1:.1f} ms, {c2:.1f} ms (ratio {c1 / c2:.2f}); nvcc started "
+        f"{cold['nvcc']}")
+    check(warm["runs"] == 2, f"warm-up: {warm['runs']} runs, want 2")
+    for k in ("flash_fwd", "bb_decode_q4", "fused_decoder"):
+        check(wl[k] > 0, f"warm-up: {k} never launched ({wl})")
+    check(set(warm["loaded_after_warmup"]) >= set(KERNELS),
+          f"warm-up: loaded {warm['loaded_after_warmup']}, want {KERNELS}")
+    check(not warm["nvcc"] and not cold["nvcc"],
+          f"nvcc ran in a child: warm {warm['nvcc']}, cold {cold['nvcc']}")
+    check(first <= WARM_FIRST_RATIO * second,
+          f"warm-up: first call {first:.1f} ms > {WARM_FIRST_RATIO} x the second {second:.1f} ms")
+    check(warm["frames"] == [1, WARM_FRAMES, 32] == cold["frames"],
+          f"warm-up children: frames {warm['frames']}, {cold['frames']}")
+    return dict(warm=warm, cold=cold, launches=wl)
+
+
+def example_scripts() -> dict:
+    """16e: ``csm_tpu_torch.examples.generate`` (int4 offline, int4
+    streamed, int8) and ``.serve`` (4 slots, three texts) in-process on
+    phase 6's checkpoint, with random full-width Mimi weights in the HF
+    layout, phase 14's char-level tokenizer stand-in and a 24 kHz clip as
+    the context."""
+    import numpy as np
+
+    from csm_tpu_torch.checkpoint.safetensors_io import save_file
+    from csm_tpu_torch.codec import MimiCodecConfig
+    from csm_tpu_torch.data.audio_io import load_wav, save_wav
+    from csm_tpu_torch.examples import generate as gen_example
+    from csm_tpu_torch.examples import serve as serve_example
+
+    d = os.path.join(TOOLING_DIR, "examples")
+    os.makedirs(d, exist_ok=True)
+    mimi_path = os.path.join(d, "mimi.safetensors")
+    save_file(mimi_hf_state_dict(MimiCodecConfig(), seed=0), mimi_path)
+    clip = os.path.join(d, "context.wav")
+    save_wav(clip, _speechlike(2 * 24000, 24000, 1, seed=2), 24000)
+    for m in (gen_example, serve_example):
+        m.load_llama3_tokenizer = lambda *a, **k: CharTokenizer()
+    wrappers = launch_counters()
+    _zero(wrappers)
+    common = ["--model", E2E_CKPT, "--mimi", mimi_path, "--bf16", "--topk", "1",
+              "--frames", str(EX_FRAMES), "--context", clip,
+              "--context-text", "We have a lot to talk about.",
+              "--text", "This voice is cloned from the context."]
+    runs, times = {}, {}
+    for tag, extra in (("int4", ["--quantize", "--bits", "4"]),
+                       ("int4_stream", ["--quantize", "--bits", "4", "--stream"]),
+                       ("int8", ["--quantize"])):
+        out = os.path.join(d, f"{tag}.wav")
+        t0 = time.perf_counter()
+        runs[tag] = gen_example.main(common + extra + ["--out", out])
+        times[tag] = time.perf_counter() - t0
+        wave, rate = load_wav(out)
+        n = runs[tag]["frames"].shape[1]
+        runs[tag]["wav_shape"] = list(wave.shape)
+        check(rate == 24000 and wave.shape == (1, n * 1920) and n > 0,
+              f"examples.generate {tag}: {n} frames, WAV {wave.shape} at {rate} Hz")
+    a, b = runs["int4"], runs["int4_stream"]
+    same = np.array_equal(a["frames"], b["frames"])
+    err = (float(np.abs(a["wave"] - b["wave"]).max()) if a["wave"].shape == b["wave"].shape
+           else float("inf"))
+    ok = same and bool(np.allclose(b["wave"], a["wave"], rtol=WAVE_RTOL, atol=WAVE_ATOL))
+    log(f"examples.generate: int4 {a['frames'].shape[1]} frames in {times['int4']:.1f} s, "
+        f"streamed {b['frames'].shape[1]} in {times['int4_stream']:.1f} s (frames equal {same}, PCM "
+        f"max |diff| {err:.3e}, phase 12's gate rtol {WAVE_RTOL} atol {WAVE_ATOL}), int8 "
+        f"{runs['int8']['frames'].shape[1]} in {times['int8']:.1f} s")
+    check(ok, f"examples.generate: streamed vs offline frames equal {same}, PCM diff {err:.3e}")
+    gen_launches = _counts(wrappers)
+
+    _zero(wrappers)
+    prefix = os.path.join(d, "serve")
+    t0 = time.perf_counter()
+    results = serve_example.main(["--model", E2E_CKPT, "--mimi", mimi_path, "--slots", "4",
+                                  "--frames", str(EX_FRAMES), "--out-prefix", prefix,
+                                  "--texts", *EX_TEXTS])
+    serve_s = time.perf_counter() - t0
+    serve_launches = _counts(wrappers)
+    lens = {}
+    for rid in range(len(EX_TEXTS)):
+        n = results[rid].shape[0] if rid in results else -1
+        wave, _ = load_wav(f"{prefix}_{rid}.wav") if n > 0 else (np.zeros((1, 0)), 0)
+        lens[rid] = (n, wave.shape[1])
+        check(n > 0 and wave.shape == (1, n * 1920),
+              f"examples.serve: request {rid} {n} frames, WAV {wave.shape}")
+    log(f"examples.serve: 3 requests on 4 slots in {serve_s:.1f} s, (frames, samples) {lens}; "
+        f"launches generate {gen_launches}, serve {serve_launches}")
+    for k in ("flash_fwd", "bb_decode_q", "bb_decode_q4", "fused_decoder"):
+        check(gen_launches[k] > 0, f"examples.generate: {k} never launched ({gen_launches})")
+    for k in ("flash_fwd", "bb_decode_q", "fused_decoder"):
+        check(serve_launches[k] > 0, f"examples.serve: {k} never launched ({serve_launches})")
+    return dict(generate={k: dict(frames=r["frames"].shape[1], wav_shape=r["wav_shape"],
+                                  seconds=times[k]) for k, r in runs.items()},
+                streamed_equal=same, streamed_pcm_max_abs=err, serve_seconds=serve_s,
+                serve=lens, launches={k: gen_launches[k] + serve_launches[k] for k in gen_launches})
+
+
+def last_modules(model, cfg, e2e: dict) -> dict:
+    """Phase 16, on phase 6's model and checkpoint; removes the checkpoint
+    when done."""
+    import numpy as np
+
+    from csm_tpu_torch.entry import dryrun_multichip
+
+    rec = {}
+    try:
+        rec["entry"] = entry_and_switch(model.params, cfg)
+        rec["measure"] = measure_prefill(model.params, cfg)
+        rec["profiling"] = profiling_tools(model, cfg, e2e)
+        rec["warmup"] = warmup_children()
+        rec["examples"] = example_scripts()
+        t0 = time.perf_counter()
+        m = dryrun_multichip(4)
+        rec["dryrun"] = dict(metrics=m, seconds=time.perf_counter() - t0)
+        check(all(np.isfinite(v) for v in m.values()), f"dryrun_multichip(4): {m}")
+    finally:
+        shutil.rmtree(E2E_CKPT, ignore_errors=True)
+        shutil.rmtree(TOOLING_DIR, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3297,7 +3761,12 @@ def main() -> int:
     results["serving_int8"] = serving_full_width(loaded, cfg, codec, bits=8)
     results["tf32_pcm"] = tf32_pcm_reading(codec, cfg)
     log(f"phase 12 (serving) in {time.perf_counter() - t0:.1f} s")
-    del loaded, codec
+    del codec
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results["last_modules"] = lm = last_modules(loaded, cfg, results["e2e"])
+    log(f"phase 16 (the last modules) in {time.perf_counter() - t0:.1f} s")
+    del loaded
     golden_on_card()
     torch.cuda.empty_cache()
 
@@ -3337,6 +3806,15 @@ def main() -> int:
            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     tpg = tp["generate"]["launches"]["flash_fwd"]
 
+    def last(path: str, k: str) -> int:
+        """Phase 16's launches of kernel ``k`` on one of its paths."""
+        parts = {"entry": ("entry",), "tooling": ("measure", "profiling"),
+                 "warmup": ("warmup",), "examples": ("examples",)}[path]
+        return sum(lm[p]["launches"].get(k, 0) for p in parts)
+
+    def last_paths(k: str, paths=("entry", "tooling", "warmup", "examples")) -> dict:
+        return {p: last(p, k) for p in paths}
+
     def head_shard(r: dict) -> dict:
         """A kernel's reading at the model=2 head shard (phase 15c)."""
         keys = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
@@ -3355,11 +3833,12 @@ def main() -> int:
         dict(name="flash_fwd", route="cuda", source="csm_tpu_torch/csrc/flash_fwd.cu",
              replaces="csm_tpu/ops/flash_attention.py:104", r=flash[8],
              launches=(counters["flash_fwd"] + tl["flash_fwd"] + s4["flash_fwd"] + sp["flash_fwd"]
-                       + fl["flash_fwd"] + tpl["flash_fwd"] + tpg),
+                       + fl["flash_fwd"] + tpl["flash_fwd"] + tpg
+                       + sum(last_paths("flash_fwd").values())),
              launches_by_path=dict(generate=counters["flash_fwd"], train=tl["flash_fwd"],
                                    serve=s4["flash_fwd"], train_sharded=sp["flash_fwd"],
                                    finetune_cli=fl["flash_fwd"], train_tp=tpl["flash_fwd"],
-                                   generate_tp=tpg),
+                                   generate_tp=tpg, **last_paths("flash_fwd")),
              with_lse=dict(fb["fwd"], shape=fb["shape"]), q_offset=shard_readings("fwd"),
              head_shard=head_shard(tp["flash"]),
              head_shard_with_lse=dict(head_shard(tp["flash_bwd"]["fwd"]),
@@ -3390,22 +3869,26 @@ def main() -> int:
              hmma=hgmma["bb_step_kernel"]),
         dict(name="bb_decode_q", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bbq[1],
-             launches=counters["bb_decode_q"] + sv["bb_decode_q"],
+             launches=counters["bb_decode_q"] + sv["bb_decode_q"] + last("examples", "bb_decode_q"),
              launches_by_path=dict(generate=counters["bb_decode_q"],
-                                   serve_int8=sv["bb_decode_q"]),
+                                   serve_int8=sv["bb_decode_q"],
+                                   examples=last("examples", "bb_decode_q")),
              kernels_per_step={B: r["kernels_per_step"] for B, r in bbq.items()},
              hmma=hgmma["bbq_step_kernel"]),
         dict(name="bb_decode_q4", route="cuda", source="csm_tpu_torch/csrc/bb_decode_q.cu",
              replaces="csm_tpu/ops/bb_kernel.py:573", r=bbq4[1],
-             launches=counters["bb_decode_q4"] + s4["bb_decode_q4"],
-             launches_by_path=dict(generate=counters["bb_decode_q4"], serve=s4["bb_decode_q4"]),
+             launches=(counters["bb_decode_q4"] + s4["bb_decode_q4"]
+                       + sum(last_paths("bb_decode_q4").values())),
+             launches_by_path=dict(generate=counters["bb_decode_q4"], serve=s4["bb_decode_q4"],
+                                   **last_paths("bb_decode_q4")),
              kernels_per_step={B: r["kernels_per_step"] for B, r in bbq4.items()},
              hmma=hgmma["bbq_step_kernel"]),
         dict(name="fused_decoder", route="cuda", source="csm_tpu_torch/csrc/fused_decoder.cu",
              replaces="csm_tpu/ops/fused_decoder.py:566", r=fused[1],
-             launches=counters["fused_decoder"] + s4["fused_decoder"],
+             launches=(counters["fused_decoder"] + s4["fused_decoder"]
+                       + sum(last_paths("fused_decoder").values())),
              launches_by_path=dict(generate=counters["fused_decoder"],
-                                   serve=s4["fused_decoder"]),
+                                   serve=s4["fused_decoder"], **last_paths("fused_decoder")),
              grid_barriers=fused[1]["gates"]["head16_sampled"]["grid_barriers"],
              hmma=hgmma["fused_decoder_kernel"]),
     ]

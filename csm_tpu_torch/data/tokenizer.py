@@ -12,13 +12,16 @@ can still import the port and train with any tokenizer object that has
 from __future__ import annotations
 
 
-def load_llama3_tokenizer(name_or_path: str = "meta-llama/Llama-3.2-1B"):
+def load_llama3_tokenizer(name_or_path: str = "meta-llama/Llama-3.2-1B",
+                          local_files_only: bool = False):
     """Llama-3 tokenizer with BOS/EOS template wrapping.  Requires either
-    network access to the HF hub or a local tokenizer directory."""
+    network access to the HF hub or a local tokenizer directory;
+    ``local_files_only`` reads only a local directory or the local HF
+    cache, never the network."""
     from tokenizers.processors import TemplateProcessing
     from transformers import AutoTokenizer
 
-    tokenizer = AutoTokenizer.from_pretrained(name_or_path)
+    tokenizer = AutoTokenizer.from_pretrained(name_or_path, local_files_only=local_files_only)
     bos, eos = tokenizer.bos_token, tokenizer.eos_token
     tokenizer._tokenizer.post_processor = TemplateProcessing(
         single=f"{bos}:0 $A:0 {eos}:0",

@@ -1080,3 +1080,91 @@ def test_dataset_encodes_audio_with_the_cards_mimi(cuda, tmp_path):
     assert audio.sum() == 25 + 1 and (codes[-1] == 0).all()
     assert codes.min() >= 0 and codes.max() < mcfg.codebook_size
     assert (codes == host["input_ids"][audio, :32]).mean() >= 0.99
+
+
+def _text_prompt(cfg, B=1, S=32, seed=4):
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((B, S, 33), np.int64)
+    ids[..., 32] = rng.integers(1, cfg.text_vocab_size, (B, S))
+    mask = np.zeros((B, S, 33), np.float32)
+    mask[..., 32] = 1
+    return ids, mask
+
+
+def test_attention_switch_launch_counts(cuda):
+    """The uncached forward launches K3 once a layer under ``"auto"`` and
+    ``"flash"`` (bitwise the same logits) and never under ``"xla"`` (the
+    plain attention, within the gross 5e-2 relative RMS of chip_smoke's
+    phase 3)."""
+    from csm_tpu_torch.ops import attention
+
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
+    ids, mask = (torch.as_tensor(x, device=cuda) for x in _text_prompt(cfg, B=2))
+    logits, launches = {}, {}
+    try:
+        for impl in ("auto", "flash", "xla"):
+            attention.set_attention_impl(impl)
+            before = flash_fwd.launches
+            logits[impl] = csm.forward(model.params, cfg, ids, mask).logits.float()
+            launches[impl] = flash_fwd.launches - before
+    finally:
+        attention.set_attention_impl("auto")
+    L = cfg.backbone.num_hidden_layers
+    assert launches == {"auto": L, "flash": L, "xla": 0}
+    assert torch.equal(logits["auto"], logits["flash"])
+    rms = ((logits["xla"] - logits["auto"]).norm() / logits["xla"].norm()).item()
+    assert rms < 5e-2, rms
+
+
+def test_trace_names_the_ports_kernels(cuda, tmp_path):
+    """``utils.trace`` around a ``quantize(bits=4)`` generate writes a trace
+    whose kernel events name K3 (bf16), K1q and K2."""
+    import glob
+    import json
+
+    from csm_tpu_torch.utils import trace
+
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=2, device=cuda).quantize(bits=4)
+    ids, mask = _text_prompt(cfg)
+    model.generate(ids, mask, max_new_frames=2, greedy=True, stop_on_all_zeros=False)
+    with trace(str(tmp_path), name="generate"):
+        model.generate(ids, mask, max_new_frames=4, greedy=True, stop_on_all_zeros=False)
+        torch.cuda.synchronize()
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = " ".join(e["name"] for e in events if e.get("cat") == "kernel")
+    for name in ("flash_fwd_wgmma_kernel", "bbq_step_kernel", "fused_decoder_kernel"):
+        assert name in kernels, name
+    assert any(e.get("name") == "generate" for e in events)
+
+
+def test_warmup_generation_launches_the_tiers_kernels(cuda):
+    """On the card the warm-up builds and loads every kernel library, then
+    runs each (B, S, frames) through K3, K1q-4 and K2; a later seeded call
+    is bitwise the one before the warm-up."""
+    from csm_tpu_torch.ops import _build
+    from csm_tpu_torch.utils.warmup import warmup_generation
+
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=2, device=cuda).quantize(bits=4)
+    ids, mask = _text_prompt(cfg)
+
+    def run():
+        g = torch.Generator(device=cuda)
+        g.manual_seed(5)
+        return model.generate(ids, mask, max_new_frames=4, generator=g)
+
+    before = run()
+    wrappers = (flash_fwd, bb_kernel.bb_decode_step_q4, fd.fused_decode_codebooks)
+    counts = [w.launches for w in wrappers]
+    n = warmup_generation(model.params, cfg, batch_sizes=(1, 2), prompt_buckets=(32,),
+                          frame_budgets=(4,), qdec=model._qdec, qbb=model._qbb,
+                          qsb=model._qsb)
+    assert n == 2
+    assert all(w.launches > c for w, c in zip(wrappers, counts))
+    assert set(_build._loaded) >= {"flash_fwd", "flash_bwd", "bb_decode", "bb_decode_q",
+                                   "fused_decoder"}
+    np.testing.assert_array_equal(run(), before)

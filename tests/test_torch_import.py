@@ -31,7 +31,9 @@ assert {"csm_tpu_torch.serving", "csm_tpu_torch.codec.mimi", "csm_tpu_torch.code
         "csm_tpu_torch.parallel.launch", "csm_tpu_torch.parallel.collectives",
         "csm_tpu_torch.data.processor", "csm_tpu_torch.data.dataset",
         "csm_tpu_torch.data.audio_io", "csm_tpu_torch.data.tokenizer", "csm_tpu_torch.native",
-        "csm_tpu_torch.train.cli"} <= set(names), names
+        "csm_tpu_torch.train.cli", "csm_tpu_torch.entry", "csm_tpu_torch.utils.profiling",
+        "csm_tpu_torch.utils.measure", "csm_tpu_torch.utils.warmup",
+        "csm_tpu_torch.examples.generate", "csm_tpu_torch.examples.serve"} <= set(names), names
 from csm_tpu_torch.data import CSMAudioTextDataset, CSMDataCollator, CSMProcessor
 """
 
@@ -46,6 +48,39 @@ def test_import_loads_no_jax_and_nothing_of_csm_tpu():
         [sys.executable, "-c", _ISOLATION], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+_ALONE = r"""
+import importlib, sys
+module = importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "csm_tpu") or m.startswith(("jax.", "flax.", "csm_tpu.")))
+assert not bad, bad
+for name in sys.argv[2:]:
+    assert callable(getattr(module, name)), name
+"""
+
+
+@pytest.mark.parametrize("module,names", [
+    ("csm_tpu_torch.entry", ["entry", "dryrun_multichip"]),
+    ("csm_tpu_torch.utils.profiling", ["trace", "sync", "FrameTimer", "enable_nan_checks"]),
+    ("csm_tpu_torch.utils", ["trace", "FrameTimer", "enable_nan_checks"]),
+    ("csm_tpu_torch.utils.measure", ["prefill_ms_on_device", "prefill_flops"]),
+    ("csm_tpu_torch.utils.warmup", ["warmup_generation"]),
+    ("csm_tpu_torch.ops.attention", ["set_attention_impl", "flash_eligible",
+                                     "sp_flash_eligible"]),
+    ("csm_tpu_torch.examples.generate", ["main"]),
+    ("csm_tpu_torch.examples.serve", ["main"]),
+])
+def test_new_modules_import_alone_without_jax(module, names):
+    """Each module of the last slice, imported first in a fresh interpreter,
+    loads no jax, flax or csm_tpu and has the JAX counterpart's public
+    names."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", _ALONE, module, *names], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
