@@ -43,6 +43,7 @@ from csm_tpu_torch.codec.mimi import (
     transformer_layer,
     upsample_spec,
 )
+from csm_tpu_torch.utils.profiling import span
 
 ROPE_TABLE_POS = 8192  # streaming RoPE table length; rebased before it is reached
 
@@ -138,8 +139,9 @@ def _stream_transformer(cfg: MimiCodecConfig, params: dict, x: torch.Tensor, kv:
         ok = ok & (q_pos - k_pos < cfg.sliding_window)
     bias = torch.where(ok, 0.0, NEG_INF).to(x.dtype)
     h, new_k, new_v = x, [], []
-    for lp, k, v in zip(per_layer(params), kv["k"].unbind(0), kv["v"].unbind(0)):
-        h, (ck, cv) = transformer_layer(cfg, lp, h, cos_q, sin_q, bias, kv=(k, v))
+    for l, (lp, k, v) in enumerate(zip(per_layer(params), kv["k"].unbind(0), kv["v"].unbind(0))):
+        with span("csm.codec.layer", l=l):
+            h, (ck, cv) = transformer_layer(cfg, lp, h, cos_q, sin_q, bias, kv=(k, v))
         new_k.append(ck)
         new_v.append(cv)
     return h, {"k": torch.stack(new_k), "v": torch.stack(new_v), "pos": pos0 + t}
@@ -193,24 +195,25 @@ def decode_step(cfg: MimiCodecConfig, params: dict, state: dict,
     x = h.transpose(1, 2)
     convs, tails = list(state["conv_caches"]), list(state["conv_tails"])
     ci = ti = 0
-    for item, p in zip(decoder_plan(cfg), params["decoder"]):
-        kind = item[0]
-        if kind == "elu":
-            x = F.elu(x)
-        elif kind == "conv":
-            spec = item[1]
-            if spec.transposed:
-                x, tails[ti] = _stream_conv_transpose(x, p["w"], p.get("b"), spec, tails[ti])
-                ti += 1
-            else:
-                x, convs[ci] = _stream_conv(x, p["w"], p.get("b"), spec, convs[ci])
-                ci += 1
-        else:  # resnet
-            res = x
-            for spec, cp in zip(item[1], p["block"]):
-                x, convs[ci] = _stream_conv(F.elu(x), cp["w"], cp.get("b"), spec, convs[ci])
-                ci += 1
-            x = res + x
+    with span("csm.codec.seanet"):
+        for item, p in zip(decoder_plan(cfg), params["decoder"]):
+            kind = item[0]
+            if kind == "elu":
+                x = F.elu(x)
+            elif kind == "conv":
+                spec = item[1]
+                if spec.transposed:
+                    x, tails[ti] = _stream_conv_transpose(x, p["w"], p.get("b"), spec, tails[ti])
+                    ti += 1
+                else:
+                    x, convs[ci] = _stream_conv(x, p["w"], p.get("b"), spec, convs[ci])
+                    ci += 1
+            else:  # resnet
+                res = x
+                for spec, cp in zip(item[1], p["block"]):
+                    x, convs[ci] = _stream_conv(F.elu(x), cp["w"], cp.get("b"), spec, convs[ci])
+                    ci += 1
+                x = res + x
     return x, {"upsample_tail": up_tail, "kv": kv, "conv_caches": convs, "conv_tails": tails}
 
 
@@ -309,9 +312,11 @@ class StreamingMimiDecoder:
         self.reset(batch)
 
     def feed(self, codes) -> np.ndarray:
-        c = torch.as_tensor(np.asarray(codes), device=self.codec.device).long()
-        out, self.state = decode_step(self.codec.config, self.codec.params, self.state, c)
-        return out[:, 0, :].cpu().numpy()
+        codes = np.asarray(codes)
+        with span("csm.codec.feed", B=codes.shape[0]):
+            c = torch.as_tensor(codes, device=self.codec.device).long()
+            out, self.state = decode_step(self.codec.config, self.codec.params, self.state, c)
+            return out[:, 0, :].cpu().numpy()
 
     def reset(self, batch: Optional[int] = None) -> None:
         """Start a new stream (of ``batch`` rows, default the current)."""

@@ -40,6 +40,7 @@ from csm_tpu_torch.ops.fused_decoder import MAX_CHUNKED_B, build_frame_gumbel, d
 from csm_tpu_torch.ops.rope import compute_rope_table
 from csm_tpu_torch.ops.sampling import sample_topk
 from csm_tpu_torch.ops.specdec import MAX_SPECDEC_B, decode_frame_specdec
+from csm_tpu_torch.utils.profiling import span
 
 # One generator for the whole batch, or one per stream (each stream's draws
 # then depend on its own generator alone: a request's tokens do not depend on
@@ -177,20 +178,23 @@ def generate_frame(
     per-row and ``greedy_rows`` marks deterministic rows
     (:func:`decode_frame`).  ``mesh``: parameters cut over its ``model``
     axis (module docstring)."""
-    out = csm.forward(
-        params, config, input_ids, attention_mask, cache=cache,
-        last_index=None if true_len is None else true_len - 1,
-        flash_prefill=flash_prefill, qbb=qbb, qsb=qsb, mesh=mesh,
-    )
+    B, S = input_ids.shape[:2]
+    with span("csm.gen.prefill" if S > 1 else "csm.gen.backbone", device=True, S=S, B=B):
+        out = csm.forward(
+            params, config, input_ids, attention_mask, cache=cache,
+            last_index=None if true_len is None else true_len - 1,
+            flash_prefill=flash_prefill, qbb=qbb, qsb=qsb, mesh=mesh,
+        )
     new_cache = out.cache
     if new_cache is not None and true_len is not None:
         start = cache.index if cache is not None else 0
         new_cache = KVCache(new_cache.k, new_cache.v, new_cache.valid, start + true_len)
-    samples = decode_frame(
-        params, config, out.last_hidden_state, out.logits,
-        temperature=temperature, topk=topk, greedy=greedy, generator=generator,
-        qdec=qdec, specdec=specdec, greedy_rows=greedy_rows, mesh=mesh,
-    )
+    with span("csm.gen.codebooks", device=True, B=B):
+        samples = decode_frame(
+            params, config, out.last_hidden_state, out.logits,
+            temperature=temperature, topk=topk, greedy=greedy, generator=generator,
+            qdec=qdec, specdec=specdec, greedy_rows=greedy_rows, mesh=mesh,
+        )
     return csm.CSMOutput(
         last_hidden_state=out.last_hidden_state, logits=out.logits,
         cache=new_cache, samples=samples,

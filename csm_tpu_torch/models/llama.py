@@ -67,6 +67,7 @@ from csm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_s
 from csm_tpu_torch.parallel.collectives import copy_to_model, gather_frames, reduce_from_model
 from csm_tpu_torch.ops.quant import qmm
 from csm_tpu_torch.ops.rope import apply_rope, gather_rope
+from csm_tpu_torch.utils.profiling import span
 
 # Finite, so a fully-masked query row softmaxes to uniform instead of NaN.
 NEG_INF = -1e9
@@ -384,9 +385,10 @@ def forward(
         idx = 0 if cache is None else cache.index
         ql = None if qlayers is None else {
             part: {name: w[l] for name, w in qlayers[part].items()} for part in ("w", "s")}
-        h = run(h, lp, cos, sin, attn_bias, config, cache_kv=kv,
-                cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql, sp_mesh=sp_mesh,
-                groups=groups)
+        with span("csm.llama.layer", l=l):
+            h = run(h, lp, cos, sin, attn_bias, config, cache_kv=kv,
+                    cache_index=idx, flash_key_valid=flash_key_valid, qlayer=ql,
+                    sp_mesh=sp_mesh, groups=groups)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(

@@ -33,6 +33,7 @@ from csm_tpu_torch.ops import _build
 from csm_tpu_torch.ops.fused_decoder import bf16_round, rms_scale
 from csm_tpu_torch.ops.quant import qmm, quantize_per_channel
 from csm_tpu_torch.ops.rope import apply_rope
+from csm_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 KERNEL = "bb_decode"
@@ -559,8 +560,10 @@ def _launch(qsb, config, h0, cos, sin, bias_w, k_cache, v_cache, name: str, stag
              None if item_ns is None else item_ns.data_ptr()]
     fn = (lib.bb_decode_step if bits == 16 else lib.bb_decode_q4_step if bits == 4
           else lib.bb_decode_q_step)
-    rc = fn(*ptrs, sc[0].numel(), 0 if item_ns is None else item_ns.numel(), L, B, D, Fi, nq,
-            nkv, hd, W, n_head, epoch, float(bcfg.rms_norm_eps), _build.stream_handle(dev))
+    with span("csm.bb.launch", B=B):
+        rc = fn(*ptrs, sc[0].numel(), 0 if item_ns is None else item_ns.numel(), L, B, D, Fi,
+                nq, nkv, hd, W, n_head, epoch, float(bcfg.rms_norm_eps),
+                _build.stream_handle(dev))
     if rc >= _REFUSED:
         raise ValueError(f"{name} kernel (B={B}, W={W}): {err(rc).decode()}")
     if rc != 0:

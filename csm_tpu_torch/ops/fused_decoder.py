@@ -26,6 +26,7 @@ from csm_tpu_torch.ops import _build
 from csm_tpu_torch.ops.quant import qmm, quantize_per_channel
 from csm_tpu_torch.ops.rope import compute_rope_table
 from csm_tpu_torch.ops.sampling import gumbel_noise
+from csm_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 KERNEL = "fused_decoder"
@@ -399,17 +400,18 @@ def fused_decode_codebooks(
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    rc = lib.fused_decode(
-        temp.data_ptr(), k.data_ptr(), frc.data_ptr(), x0.data_ptr(), c0.data_ptr(),
-        w["wqkv"].data_ptr(), w["wo"].data_ptr(), w["w_gu"].data_ptr(), w["w_down"].data_ptr(),
-        s["wqkv"].data_ptr(), s["wo"].data_ptr(), s["w_gu"].data_ptr(), s["w_down"].data_ptr(),
-        qdec["cos"].data_ptr(), qdec["sin"].data_ptr(), head.data_ptr(), hs.data_ptr(),
-        gum.data_ptr(), emb.data_ptr(), samples.data_ptr(), ptr(out_logits), ptr(out_draws),
-        scratch.data_ptr(), scratch.numel(), kc.data_ptr(), vc.data_ptr(), bar.data_ptr(),
-        ptr(stage_ns),
-        B, N, Va, Va_pad, D, L, nq, nkv, hd, Fi, NP, int(greedy), head_kind,
-        int(emb.dtype == torch.bfloat16), float(dcfg.rms_norm_eps), _build.stream_handle(dev),
-    )
+    with span("csm.k2.launch", B=B):
+        rc = lib.fused_decode(
+            temp.data_ptr(), k.data_ptr(), frc.data_ptr(), x0.data_ptr(), c0.data_ptr(),
+            w["wqkv"].data_ptr(), w["wo"].data_ptr(), w["w_gu"].data_ptr(), w["w_down"].data_ptr(),
+            s["wqkv"].data_ptr(), s["wo"].data_ptr(), s["w_gu"].data_ptr(), s["w_down"].data_ptr(),
+            qdec["cos"].data_ptr(), qdec["sin"].data_ptr(), head.data_ptr(), hs.data_ptr(),
+            gum.data_ptr(), emb.data_ptr(), samples.data_ptr(), ptr(out_logits), ptr(out_draws),
+            scratch.data_ptr(), scratch.numel(), kc.data_ptr(), vc.data_ptr(), bar.data_ptr(),
+            ptr(stage_ns),
+            B, N, Va, Va_pad, D, L, nq, nkv, hd, Fi, NP, int(greedy), head_kind,
+            int(emb.dtype == torch.bfloat16), float(dcfg.rms_norm_eps), _build.stream_handle(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"fused_decode_codebooks launch failed: {lib.fd_error_string(rc).decode()}")
     _last_bar[:] = [bar]

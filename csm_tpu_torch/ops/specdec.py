@@ -27,6 +27,7 @@ from csm_tpu_torch.ops.fused_decoder import (
     bf16_round, decode_frame_fused, row_params, sample_row,
 )
 from csm_tpu_torch.ops.rope import compute_rope_table
+from csm_tpu_torch.utils.profiling import span
 
 # Largest batch the speculative tier serves (the JAX package's cap); larger
 # batches take the plain loop in generation.decode_frame, equally exact.
@@ -112,13 +113,15 @@ def decode_frame_specdec(
     verified = torch.ones((B,), dtype=torch.long, device=dev)
     rounds = 0
     while bool((verified < N).any()):
-        forced = torch.where(col < verified[:, None], tokens, torch.full_like(tokens, -1))
-        draft = decode_frame_fused(params, qdec, config, last_h, c0_logits, gumbel, temp, k,
-                                   greedy, forced=forced)
-        exact = verify_codebooks(params, config, last_h, draft, gumbel, temp_v, topk_v, greedy)
-        match = (exact == draft) | (col < verified[:, None])
-        vk = torch.cumprod(match.long(), dim=1).sum(dim=1)  # first mismatch, or N
-        tokens = torch.where(col == vk[:, None], exact, draft)
-        verified = torch.clamp(vk + 1, max=N)
+        with span("csm.spec.round", round=rounds):
+            forced = torch.where(col < verified[:, None], tokens, torch.full_like(tokens, -1))
+            draft = decode_frame_fused(params, qdec, config, last_h, c0_logits, gumbel, temp, k,
+                                       greedy, forced=forced)
+            exact = verify_codebooks(params, config, last_h, draft, gumbel, temp_v, topk_v,
+                                     greedy)
+            match = (exact == draft) | (col < verified[:, None])
+            vk = torch.cumprod(match.long(), dim=1).sum(dim=1)  # first mismatch, or N
+            tokens = torch.where(col == vk[:, None], exact, draft)
+            verified = torch.clamp(vk + 1, max=N)
         rounds += 1
     return (tokens, rounds) if return_rounds else tokens

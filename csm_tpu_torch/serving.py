@@ -19,6 +19,7 @@ JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Iterator, Optional
 
@@ -29,6 +30,7 @@ from csm_tpu_torch.config import CSMConfig
 from csm_tpu_torch.generation import _next_frame_inputs, _pad_to_bucket, generate_frame
 from csm_tpu_torch.models import csm
 from csm_tpu_torch.models.llama import KVCache
+from csm_tpu_torch.utils.profiling import span
 
 
 def _window(config: CSMConfig, frames: int) -> int:
@@ -204,6 +206,7 @@ class _Request:
     topk: int
     greedy: bool
     prefix_id: Optional[str]
+    submitted_ns: int  # time.perf_counter_ns() at submit
 
 
 class CSMServer:
@@ -368,15 +371,17 @@ class CSMServer:
             raise KeyError(f"unknown prefix_id {prefix_id!r}")
         rid = self._next_id
         self._next_id += 1
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(1000 + rid if seed is None else seed)
-        self._pending.append(_Request(
-            rid, np.asarray(input_ids), np.asarray(attention_mask, np.float32), generator,
-            max_new_frames or self.default_max_new_frames,
-            self._default_temp if temperature is None else float(np.float32(temperature)),
-            self._default_topk if topk is None else int(topk), bool(greedy), prefix_id))
-        self._drain_pending()
+        with span("csm.serve.submit", rid=rid):
+            if generator is None:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(1000 + rid if seed is None else seed)
+            self._pending.append(_Request(
+                rid, np.asarray(input_ids), np.asarray(attention_mask, np.float32), generator,
+                max_new_frames or self.default_max_new_frames,
+                self._default_temp if temperature is None else float(np.float32(temperature)),
+                self._default_topk if topk is None else int(topk), bool(greedy), prefix_id,
+                time.perf_counter_ns()))
+            self._drain_pending()
         return rid
 
     def _drain_pending(self):
@@ -388,6 +393,11 @@ class CSMServer:
 
     @torch.no_grad()
     def _admit_request(self, slot: int, req: _Request):
+        with span("csm.serve.admit", rid=req.rid, slot=slot, S=req.ids.shape[1],
+                  queued_ms=(time.perf_counter_ns() - req.submitted_ns) / 1e6):
+            self._admit(slot, req)
+
+    def _admit(self, slot: int, req: _Request):
         if req.ids.shape[0] != 1:
             raise ValueError("submit one conversation per request")
         if req.prefix_id is not None:
@@ -448,6 +458,10 @@ class CSMServer:
 
     def _observe(self, slot: int, frame: np.ndarray, drain: bool = True):
         rid = self._slot_req[slot]
+        with span("csm.serve.observe", rid=rid, slot=slot):
+            self._record_frame(slot, rid, frame, drain)
+
+    def _record_frame(self, slot: int, rid: int, frame: np.ndarray, drain: bool):
         stopped = self.stop_on_all_zeros and not frame.any()
         if not stopped:
             self._frames[rid].append(frame.copy())
@@ -515,9 +529,12 @@ class CSMServer:
             if not self.active_slots:
                 return False
         active_before = list(self.active_slots)
-        frames = self._frame_step().cpu().numpy()
-        for s in active_before:
-            self._observe(s, frames[s])
+        B = len(active_before)
+        with span("csm.serve.step", B=B):
+            with span("csm.serve.frame", B=B):
+                frames = self._frame_step().cpu().numpy()
+            for s in active_before:
+                self._observe(s, frames[s])
         return bool(self.active_slots or self._pending)
 
     @torch.no_grad()
@@ -530,12 +547,16 @@ class CSMServer:
             if not self.active_slots:
                 return False
         rid_at_start = list(self._slot_req)
-        frames = torch.stack([self._frame_step() for _ in range(n)]).cpu().numpy()  # [n, B, 32]
-        for t in range(n):
-            for s in range(self.n_slots):
-                if rid_at_start[s] is not None and self._slot_req[s] == rid_at_start[s]:
-                    self._observe(s, frames[t, s], drain=False)
-        self._drain_pending()
+        B = len(self.active_slots)
+        with span("csm.serve.step", B=B, n=n):
+            with span("csm.serve.frame", B=B, n=n):
+                # [n, B, 32]
+                frames = torch.stack([self._frame_step() for _ in range(n)]).cpu().numpy()
+            for t in range(n):
+                for s in range(self.n_slots):
+                    if rid_at_start[s] is not None and self._slot_req[s] == rid_at_start[s]:
+                        self._observe(s, frames[t, s], drain=False)
+            self._drain_pending()
         return bool(self.active_slots or self._pending)
 
     def run_until_idle(self, max_steps: int = 10_000, chunk: int = 1) -> dict:

@@ -53,6 +53,7 @@ from csm_tpu_torch.parallel.mesh import (
     sharded_dim,
     take_shard,
 )
+from csm_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -248,32 +249,40 @@ def make_train_step(
 
     def train_step(state: TrainState, base_params, batch: Dict[str, torch.Tensor]):
         accum = batch["input_ids"].shape[0]
+        with span("csm.train.step", accum=accum):
+            return accumulate_and_update(state, base_params, batch, accum)
+
+    def accumulate_and_update(state: TrainState, base_params, batch: Dict[str, torch.Tensor],
+                              accum: int):
         leaves = list(flatten(state.params).values())
         for p in leaves:
             p.grad = None
         sums = None
         for a in range(accum):
-            out = loss_fn(state.params, base_params, {k: v[a] for k, v in batch.items()})
-            out.loss.backward()
+            with span("csm.train.forward", device=True):
+                out = loss_fn(state.params, base_params, {k: v[a] for k, v in batch.items()})
+            with span("csm.train.backward", device=True):
+                out.loss.backward()
             parts = torch.stack([out.loss, out.backbone_loss, out.decoder_loss]).detach().float()
             sums = parts if sums is None else sums + parts
         scale = 1.0 / accum
-        grads = []
-        for p in leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if mesh is not None:
-            # One collective over the flattened gradients, in leaf order:
-            # the same sequence of collectives on every rank.
-            all_reduce_flat_(grads, mesh.group("batch"))
-        for g in grads:
-            g.mul_(scale)
-        grad_norm = optimizer.clip_(grads, sharded, model_group)
-        for group in state.optimizer.param_groups:
-            group["lr"] = optimizer.lr(state.step)
-        state.optimizer.step()
-        state.step += 1
+        with span("csm.train.update", device=True):
+            grads = []
+            for p in leaves:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            if mesh is not None:
+                # One collective over the flattened gradients, in leaf order:
+                # the same sequence of collectives on every rank.
+                all_reduce_flat_(grads, mesh.group("batch"))
+            for g in grads:
+                g.mul_(scale)
+            grad_norm = optimizer.clip_(grads, sharded, model_group)
+            for group in state.optimizer.param_groups:
+                group["lr"] = optimizer.lr(state.step)
+            state.optimizer.step()
+            state.step += 1
         sums = sums * scale
         metrics = {"loss": sums[0], "backbone_loss": sums[1], "decoder_loss": sums[2],
                    "grad_norm": grad_norm}
