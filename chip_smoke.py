@@ -731,9 +731,6 @@ def check_bbq(qsb, config, B: int, gen):
 # kernel's own logits, bit for bit.
 FUSED_FULL_RMS_TOL = 2e-2
 FUSED_LAYER_LIMITS = {"share": 0.3, "rel_rms": 3e-3}
-# Grid barriers a frame, the kernel's own count: 1 + 31 passes x 21 at most
-# (the design before took 1,055).
-FUSED_MAX_BARRIERS = 652
 FUSED_TEMP, FUSED_TOPK = 0.8, 50
 
 
@@ -783,9 +780,10 @@ def check_fused(qdecs, params, config, B: int, gen):
             mode = "greedy" if greedy else "sampled"
             tag = f"fused B={B} head{head_bits} {mode}"
             run = _fused_run(qdec, config, x0, c0, gum, temp, topk, greedy)
-            barriers = fd.last_grid_barriers()
-            check(barriers <= FUSED_MAX_BARRIERS,
-                  f"{tag}: {barriers} grid barriers a frame > {FUSED_MAX_BARRIERS}")
+            counts = fd.last_sync_counts()
+            check(counts["grid_barriers"] == 0 and counts["items"] == fd.item_count(qdec, config, B)
+                  and counts["closed_waits"] <= counts["items"],
+                  f"{tag}: the kernel's counters {counts}")
             samples, lg, draws = run["kernel"]
             ref = run["plain"]
             full = {side: _logit_readings(run[side][1], ref[1], Va)
@@ -814,14 +812,14 @@ def check_fused(qdecs, params, config, B: int, gen):
                 f"{layer['control']['share']:.3e} / {layer['control']['rel_rms']:.3e}, limits "
                 f"{FUSED_LAYER_LIMITS['share']} / {FUSED_LAYER_LIMITS['rel_rms']}; draws == "
                 f"sampler on own logits {draws_equal}; draws == plain draws {vs_plain:.4f}; "
-                f"{barriers} grid barriers a frame")
+                f"counters {counts}")
             for k, lim in FUSED_LAYER_LIMITS.items():
                 check(layer["kernel"][k] <= lim, f"{tag}: one-layer logits {k} {layer['kernel'][k]:.3e} > {lim}")
             check(any(layer["control"][k] > lim for k, lim in FUSED_LAYER_LIMITS.items()),
                   f"{tag}: the one-layer limits do not see the f32-operand control")
             out[f"head{head_bits}_{mode}"] = dict(
                 full=full, one_layer=layer, draws_equal=draws_equal, draws_vs_plain=vs_plain,
-                grid_barriers=barriers,
+                sync_counts=counts,
                 max_abs=(lg[..., :Va] - ref[1][..., :Va]).abs().max().item())
     timing = {}
     for head_bits, qdec in qdecs.items():
@@ -831,8 +829,10 @@ def check_fused(qdecs, params, config, B: int, gen):
         log(f"fused B={B} head{head_bits}: kernel {ms:.4f} ms per frame, bound "
             f"{timing[head_bits]['bound'][0]:.4f} ms ({timing[head_bits]['bound'][1]})")
     stages = fused_stage_us(qdecs[16], config, (x0, c0, gum_s, temp, topk, False))
-    log(f"fused B={B} head16: stage us per pass (kernel trace, mean over passes 1..{N - 3}): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    log(f"fused B={B} head16: stage us per pass (kernel trace, block 0 leaving each stage, mean "
+        f"over positions 2..{N - 2}): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    log(f"fused B={B}: K2 {timing[16]['ms']:.4f} ms a frame (bf16 head) against its bound "
+        f"{timing[16]['bound'][0]:.4f} ms: {timing[16]['ms'] / timing[16]['bound'][0]:.1f}x")
     args = (qdecs[16], config, x0, c0, gum_s, temp, topk, False, torch.full((B, N), -1, device=dev))
     plain_ms = cuda_ms(lambda: fd.decode_codebooks_reference(*args), iters=2, warmup=1)
     log(f"fused B={B}: plain version {plain_ms:.2f} ms per frame (bf16 head, sampled)")
@@ -844,31 +844,36 @@ def check_fused(qdecs, params, config, B: int, gen):
                 shape=f"B={B} CSM-1B decoder, bf16 head, sampled", gates=out)
 
 
-FUSED_STAGES = ("qkv", "attention", "o_proj", "gate_up", "down")
+FUSED_STAGES = ("input", "qkv", "attention", "o_proj", "gate_up", "down", "final", "head", "draw")
 
 
 def fused_stage_us(qdec, config, args) -> dict:
     """One frame with the kernel's trace (block 0's clock as it leaves each
-    grid barrier): µs per pass of each stage kind, summed over the layers,
-    and of the head with the draws, averaged over the passes of one new
-    row (1 .. N-3; pass 0 takes two rows, the last has no closing barrier)."""
+    stage of the frame's list): µs per position of each stage kind, the
+    layers' summed, averaged over positions 2 .. N-2 (position 0 has no head,
+    position 1 follows the c0 draws, the last is the frame's tail); the c0
+    draws and the whole frame besides.  With no grid barrier the stages of
+    other blocks overlap block 0's, so these are block 0's times."""
     import torch
 
     from csm_tpu_torch.ops import fused_decoder as fd
 
     N, L = config.audio_num_codebooks, config.decoder.num_hidden_layers
-    per = 5 * L + 1
-    stamps = torch.zeros(((N - 1) * per + 1,), dtype=torch.int64, device="cuda")
+    per = 5 * L + fd.PASS_EXTRA
+    stamps = torch.zeros((fd.stage_count(N, L),), dtype=torch.int64, device="cuda")
     fd.fused_decode_codebooks(qdec, config, *args, stage_ns=stamps)
-    d = stamps.diff().double().cpu() / 1e3  # d[n - 1]: the stage ending at barrier n
-    out = {k: 0.0 for k in (*FUSED_STAGES, "head_draw")}
-    passes = range(1, N - 2)
-    for i in passes:
+    d = stamps.diff().double().cpu() / 1e3  # d[s]: stage s (0: the c0 draws)
+    out = {k: 0.0 for k in FUSED_STAGES}
+    passes = range(2, N - 1)
+    for p in passes:
+        base = 1 + p * per
         for j in range(per):
-            key = "head_draw" if j == 5 * L else FUSED_STAGES[j % 5]
-            out[key] += d[1 + per * i + j].item() / len(passes)
+            key = ("input" if j == 0 else FUSED_STAGES[1 + (j - 1) % 5] if j <= 5 * L
+                   else FUSED_STAGES[6 + j - 5 * L - 1])
+            out[key] += d[base + j].item() / len(passes)
     out["pass_total"] = sum(out.values())
     out["c0_draw"] = d[0].item()
+    out["frame"] = (stamps[-1] - stamps[0]).item() / 1e3
     return out
 
 
@@ -3889,7 +3894,7 @@ def main() -> int:
                        + sum(last_paths("fused_decoder").values())),
              launches_by_path=dict(generate=counters["fused_decoder"],
                                    serve=s4["fused_decoder"], **last_paths("fused_decoder")),
-             grid_barriers=fused[1]["gates"]["head16_sampled"]["grid_barriers"],
+             sync_counts=fused[1]["gates"]["head16_sampled"]["sync_counts"],
              hmma=hgmma["fused_decoder_kernel"]),
     ]
     kernels = []

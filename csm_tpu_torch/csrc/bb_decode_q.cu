@@ -28,12 +28,13 @@
 // the usable KV rows: at least ~0.29 ms (int8) / ~0.15 ms (int4) at 3.35
 // TB/s.  Its operations (2 B x 0.98 G) are far below the tensor cores' rate.
 // The step's machinery (schedule, flags, weight ring, attention, main loop)
-// is csrc/bb_step.cuh's, shared with the exact bf16 tier (bb_decode.cu).
-// What is this tier's: the products widen the int8 weights (or sign-extended
-// int4 nibbles) to bf16 in registers, exactly, after ldmatrix .trans (int8 /
-// int4 x bf16 products are exact in f32, so only the order of the f32 sums
-// differs from the plain version; B = 32 takes four 8-column operands over
-// one weight fragment); the epilogues apply the scales and rs: RoPE and the
+// and its products are csrc/bb_step.cuh's, shared with the exact bf16 tier
+// (bb_decode.cu) and the fused codebook loop (fused_decoder.cu).  The
+// products widen the int8 weights (or sign-extended int4 nibbles) to bf16 in
+// registers, exactly, after ldmatrix .trans (int8 / int4 x bf16 products are
+// exact in f32, so only the order of the f32 sums differs from the plain
+// version; B = 32 takes four 8-column operands over one weight fragment).
+// What is this tier's: the epilogues apply the scales and rs: RoPE and the
 // bf16 K/V rows for QKV (a tile holds whole heads), the residual add with the
 // tile's sums of squares and the next product's bf16 operand (times its u
 // for int4) for o-proj and down, SwiGLU for gate-up.  Traces: chip_smoke
@@ -42,108 +43,6 @@
 #include "bb_step.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// The signed bytes 0 and 2 of r as bf16x2, exactly: with l the low 7 bits,
-// (128 + l) + (v < 0 ? -256 : -128), both terms bf16 bit patterns.
-__device__ __forceinline__ uint32_t i8x2(uint32_t r) {
-  return bf2_add((r & 0x007F007Fu) | 0x43004300u, (r & 0x00800080u) ^ 0xC300C300u);
-}
-// The signed nibbles at bits 0 and 16 of r as bf16x2, exactly: (128 + (n +
-// 8)) - 136.
-__device__ __forceinline__ uint32_t i4x2(uint32_t r) {
-  return bf2_sub((r & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
-}
-
-// One work item's sums on the tensor cores: ct[r][c] = sum over split ks of
-// x'[r, k] W[k, col(c)] for the tile's 128 columns, rows r < 8 NRB.  The
-// weights' A fragments come from ldmatrix .trans and are widened to bf16
-// exactly by bit operations and one bf16x2 add: row m = g of the fragment is
-// tile column 16 warp + 2g, m = g + 8 column 16 warp + 2g + 1.
-template <int NRB, int WK>
-__device__ void mma_item(const Params& p, Ring& ring, const Prod& q, int idx,
-                         const bf16* x, bf16* X, float* ct) {
-  const int ks = idx / q.tiles;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int kr = CHUNK_ROWS * q.P;  // K rows of a chunk
-  int gch = (X_BYTES / 2 / (8 * NRB) - 8) / kr;  // chunks staged together
-  gch = gch < 1 ? 1 : gch > q.nch ? q.nch : gch;
-  const int XS = gch * kr + 8;
-  // Two accumulator sets (even and odd k16 slices) halve the chain of
-  // dependent mma; they are added once at the end.
-  float acc[2][NRB][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int rb = 0; rb < NRB; ++rb)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[h][rb][c] = 0.f;
-  for (int ch0 = 0; ch0 < q.nch; ch0 += gch) {
-    const int nj = min(gch, q.nch - ch0);
-    stage_x<WK == 1>(x, q.K, p.s.B, 8 * NRB, ks * q.kc + ch0 * kr, nj * kr, XS, X);
-    for (int j = 0; j < nj; ++j) {
-      const uint8_t* w = front(ring);
-      const bf16* xj = X + j * kr;
-      // 32 byte rows an ldmatrix: int8, 2 k16 slices (k 0-7 and 8-15 of each,
-      // k slot = K row); int4, 4 slices of 8 byte rows, whose k slots 2t, 2t+1
-      // hold K rows 4t, 4t+2 (low nibbles) and 2t+8, 2t+9 rows 4t+1, 4t+3.
-#pragma unroll
-      for (int it = 0; it < CHUNK_ROWS / 32; ++it) {
-        uint32_t r[4];
-        const int row = 32 * it + lane;
-        ldsm_x4_t(r, w + row * COLS + ((warp ^ (row & 7)) * 16));
-#pragma unroll
-        for (int h = 0; h < (WK == 0 ? 2 : 4); ++h) {
-          uint32_t a[4];
-          if constexpr (WK == 0) {
-            a[0] = i8x2(r[2 * h]);
-            a[1] = i8x2(r[2 * h] >> 8);
-            a[2] = i8x2(r[2 * h + 1]);
-            a[3] = i8x2(r[2 * h + 1] >> 8);
-          } else {
-            a[0] = i4x2(r[h]);
-            a[1] = i4x2(r[h] >> 8);
-            a[2] = i4x2(r[h] >> 4);
-            a[3] = i4x2(r[h] >> 12);
-          }
-          const int s = (WK == 0 ? 2 : 4) * it + h;
-#pragma unroll
-          for (int rb = 0; rb < NRB; ++rb) {
-            const bf16* xr = xj + (rb * 8 + g) * XS + 16 * s;
-            if constexpr (WK == 0) {
-              mma16816(acc[h & 1][rb], a, *reinterpret_cast<const uint32_t*>(xr + 2 * t),
-                       *reinterpret_cast<const uint32_t*>(xr + 8 + 2 * t));
-            } else {
-              const uint2 b = *reinterpret_cast<const uint2*>(xr + 4 * t);
-              mma16816(acc[h & 1][rb], a, b.x, b.y);
-            }
-          }
-        }
-      }
-      pop(ring);
-    }
-  }
-  const int c0 = 16 * warp + 2 * g;
-#pragma unroll
-  for (int rb = 0; rb < NRB; ++rb) {
-    const int r0 = rb * 8 + 2 * t;
-    ct[r0 * CT_STRIDE + c0] = acc[0][rb][0] + acc[1][rb][0];
-    ct[(r0 + 1) * CT_STRIDE + c0] = acc[0][rb][1] + acc[1][rb][1];
-    ct[r0 * CT_STRIDE + c0 + 1] = acc[0][rb][2] + acc[1][rb][2];
-    ct[(r0 + 1) * CT_STRIDE + c0 + 1] = acc[0][rb][3] + acc[1][rb][3];
-  }
-  csync();
-}
 
 // The per-column constants of a tile's epilogue for this thread's column,
 // loaded when the item starts (before its waits): the scale s (gate-up: of
@@ -247,15 +146,6 @@ __device__ void epilogue(const Params& p, int kind, int l, int cti, float* ct, f
       break;
     }
   }
-}
-
-template <int WK>
-__device__ void run_mma(const Params& p, Ring& ring, const Prod& q, int idx, const bf16* x, bf16* X,
-                        float* ct) {
-  const int nrb = (p.s.B + 7) / 8;
-  if (nrb <= 1) mma_item<1, WK>(p, ring, q, idx, x, X, ct);
-  else if (nrb <= 2) mma_item<2, WK>(p, ring, q, idx, x, X, ct);
-  else mma_item<4, WK>(p, ring, q, idx, x, X, ct);
 }
 
 template <bool INT4>

@@ -1,8 +1,11 @@
 // One backbone decode step as one persistent cooperative launch: the
 // machinery shared by the exact bf16 tier (bb_decode.cu, bb_step_kernel) and
 // the int8 / int4 tiers (bb_decode_q.cu, bbq_step_kernel<false|true>).  Each
-// source supplies its tier's products, epilogues and row items (a Tier
-// struct for run_step); the rest is here.  What the TPU kernel did for its
+// source supplies its tier's epilogues and row items (a Tier struct for
+// run_step) and the exact tier its compensated bf16 product; the rest is
+// here.  The fused codebook loop (fused_decoder.cu) walks its own item list
+// on the same pieces: the weight ring and its producer, flags, tickets and
+// the int8 / bf16 products.  What the TPU kernel did for its
 // hardware (VMEM weight rings, permuted rotary columns, one-hot head
 // split/merge matmuls) is not carried over; its idea is: one program for the
 // whole step, a static chunk schedule, and the next weights always in
@@ -104,6 +107,7 @@ enum Refused : int {
   REFUSED_SHAPES = 10001,  // shapes_ok
   REFUSED_WINDOW,          // attention's window leaves no room for a ring
   REFUSED_BUFFER,          // a scratch or item trace smaller than the step's
+  REFUSED_SMEM,            // the fused codebook loop's shared memory past the block's
 };
 constexpr int SS_MAX = 4 * NT;         // tile sums of squares an epilogue reads (B D / 128)
 
@@ -336,12 +340,14 @@ __device__ __forceinline__ bool is_prod(int kind) {
 
 // The block's plan: for each of its items, in order, where its weight
 // chunks start (row 0 of its K split, its first column), the row stride in
-// bytes, the chunk count (0: not a product) and the byte offset of the
-// second half of each row past its first (gate-up tiles: the up columns).
-// Built once a launch, so issuing a chunk is a few loads from shared memory.
+// bytes, the chunk count (0: not a product), the byte offset of the second
+// half of each row past its first (gate-up tiles: the up columns) and, for a
+// producer that takes each entry's width (produce<0>), the 16-byte pieces of
+// a chunk row (8 or 16).  Built once a launch, so issuing a chunk is a few
+// loads from shared memory.
 struct Plan {
   const int8_t* base;
-  int N, nch, coff, pad;
+  int N, nch, coff, pieces;
 };
 
 template <bool EXACT>
@@ -393,17 +399,31 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
                : "memory");
 }
 
+// One chunk of plan entry e into ring slot dst: this producer lane's share
+// of its 16-byte pieces.
+template <int PIECES>
+__device__ __forceinline__ void copy_chunk(const Plan& e, int ch, int lane, uint8_t* dst) {
+#pragma unroll 8
+  for (int u = 0; u < CHUNK_BYTES / 16 / PROD; ++u) {
+    const int i = lane + PROD * u, row = i >> (PIECES == 16 ? 4 : 3), piece = i & (PIECES - 1);
+    cp_async16(dst + row * 16 * PIECES + ((piece ^ (row & 7)) * 16),
+               chunk_src<PIECES>(e, ch, row, piece));
+  }
+}
+
 // The producer warpgroup: every chunk of the block's plan, in order, into
 // ring slot c % depth by cp.async, each lane's copies arriving on the slot's
 // full barrier as they land.  A slot is refilled once the consumer warps
 // have released it (its empty barrier).  The stream waits on nothing else:
 // not on flags, not on the consumers' epilogues.  Each row's 16-byte pieces
-// (PIECES of them) are stored at piece ^ (row % 8), so the 8 rows an
-// ldmatrix phase reads fall in distinct banks.
-template <int PIECES>
-__device__ void produce(const Params& p, const Plan* plan, int n_mine, uint8_t* buf,
-                        uint64_t* full, uint64_t* empty) {
+// (PIECES of them; 0: each plan entry's own count) are stored at piece ^
+// (row % 8), so the 8 rows an ldmatrix phase reads fall in distinct banks.
+// With COUNT, returns how many slots were not yet free when first polled.
+template <int PIECES, bool COUNT = false>
+__device__ unsigned produce(const Params& p, const Plan* plan, int n_mine, uint8_t* buf,
+                            uint64_t* full, uint64_t* empty) {
   const int lane = threadIdx.x - NT;  // 0 .. PROD - 1
+  unsigned waits = 0;
   Cursor c{0, 0};
   settle(plan, n_mine, c);
   for (int k = 0; c.e < n_mine; ++k) {
@@ -411,22 +431,26 @@ __device__ void produce(const Params& p, const Plan* plan, int n_mine, uint8_t* 
     if (k >= p.ring) {  // polled with pauses: the consumer warps share the SM
       const uint32_t bar = smem_u32(empty + slot), parity = ((k / p.ring) - 1) & 1;
       const long long t0 = clock64();
+      bool first = true;
       while (!hopper::mbar_try_wait(bar, parity)) {
+        if constexpr (COUNT) waits += first ? 1u : 0u;
+        first = false;
         __nanosleep(64);
         if (clock64() - t0 > (1ll << 35)) __trap();
       }
     }
     const Plan& e = plan[c.e];
     uint8_t* dst = buf + (size_t)slot * CHUNK_BYTES;
-#pragma unroll 8
-    for (int u = 0; u < CHUNK_BYTES / 16 / PROD; ++u) {
-      const int i = lane + PROD * u, row = i >> (PIECES == 16 ? 4 : 3), piece = i & (PIECES - 1);
-      cp_async16(dst + row * 16 * PIECES + ((piece ^ (row & 7)) * 16),
-                 chunk_src<PIECES>(e, c.ch, row, piece));
+    if constexpr (PIECES == 0) {
+      if (e.pieces == 16) copy_chunk<16>(e, c.ch, lane, dst);
+      else copy_chunk<8>(e, c.ch, lane, dst);
+    } else {
+      copy_chunk<PIECES>(e, c.ch, lane, dst);
     }
     cp_async_arrive_noinc(full + slot);
     advance(plan, n_mine, c);
   }
+  return waits;
 }
 
 // The consumers' view of the ring: chunks in plan order.
@@ -458,10 +482,13 @@ __device__ __forceinline__ void csync() { asm volatile("bar.sync 1, %0;\n" ::"n"
 // ---------------------------------------------------------------------------
 
 // Waits until flags [f, f + n) reach the epoch (a thread per flag; the
-// caller synchronises the block after its waits).
-__device__ void wait_flags(const unsigned* f, int n, unsigned epoch) {
+// caller synchronises the block after its waits).  Returns whether this
+// thread found one of its flags still closed.
+__device__ bool wait_flags(const unsigned* f, int n, unsigned epoch) {
+  bool closed = false;
   for (int i = threadIdx.x; i < n; i += NT) {
     if (!reached(ld_acquire(f + i), epoch)) {
+      closed = true;
       const long long t0 = clock64();
       do {
         __nanosleep(32);
@@ -469,6 +496,7 @@ __device__ void wait_flags(const unsigned* f, int n, unsigned epoch) {
       } while (!reached(ld_acquire(f + i), epoch));
     }
   }
+  return closed;
 }
 
 // The item trace: the time its waits were over (thread 0, after the block
@@ -534,6 +562,157 @@ __device__ void stage_x(const bf16* x, int K, int R, int rows, int k0, int n, in
     }
   }
   csync();
+}
+
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// The signed bytes 0 and 2 of r as bf16x2, exactly: with l the low 7 bits,
+// (128 + l) + (v < 0 ? -256 : -128), both terms bf16 bit patterns.
+__device__ __forceinline__ uint32_t i8x2(uint32_t r) {
+  return bf2_add((r & 0x007F007Fu) | 0x43004300u, (r & 0x00800080u) ^ 0xC300C300u);
+}
+// The signed nibbles at bits 0 and 16 of r as bf16x2, exactly: (128 + (n +
+// 8)) - 136.
+__device__ __forceinline__ uint32_t i4x2(uint32_t r) {
+  return bf2_sub((r & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
+}
+
+// One work item's sums on the tensor cores: ct[r][c] = sum over split ks of
+// x'[r, k] W[k, col(c)] for the tile's 128 columns, rows r < 8 NRB (the
+// int8 / int4 steps; the fused codebook loop's int8 layers and its int8 or
+// bf16 head).  WK: 0 int8, 1 int4, 2 bf16 weights.  The int8 / int4 A
+// fragments come from ldmatrix .trans and are widened to bf16 exactly by bit
+// operations and one bf16x2 add: row m = g of the fragment is tile column 16
+// warp + 2g, m = g + 8 column 16 warp + 2g + 1.  bf16 chunks (64 K rows of
+// 256 bytes) give the A fragment straight from ldmatrix .trans: row m is
+// tile column 16 warp + m.  Two accumulator sets (even and odd k16 slices)
+// halve the chain of dependent mma; CHAIN keeps one, every slice in order
+// (the fused codebook loop: the chained order of a tensor-core GEMM, which
+// its plain version runs).  X holds XB bytes.
+template <int NRB, int WK, bool CHAIN = false, int XB = X_BYTES>
+__device__ void mma_item(const Params& p, Ring& ring, const Prod& q, int idx,
+                         const bf16* x, bf16* X, float* ct) {
+  const int ks = idx / q.tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int kr = WK == 2 ? CHUNK_ROWS / 2 : CHUNK_ROWS * q.P;  // K rows of a chunk
+  int gch = (XB / 2 / (8 * NRB) - 8) / kr;  // chunks staged together
+  gch = gch < 1 ? 1 : gch > q.nch ? q.nch : gch;
+  const int XS = gch * kr + 8;
+  // The accumulator sets, added once at the end.
+  constexpr int SETS = CHAIN ? 1 : 2;
+  float acc[2][NRB][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rb = 0; rb < NRB; ++rb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[h][rb][c] = 0.f;
+  for (int ch0 = 0; ch0 < q.nch; ch0 += gch) {
+    const int nj = min(gch, q.nch - ch0);
+    stage_x<WK == 1>(x, q.K, p.s.B, 8 * NRB, ks * q.kc + ch0 * kr, nj * kr, XS, X);
+    for (int j = 0; j < nj; ++j) {
+      const uint8_t* w = front(ring);
+      const bf16* xj = X + j * kr;
+      if constexpr (WK == 2) {
+        // Lane's row address: matrices 0-3 are (K rows 0-7, columns 0-7),
+        // (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of the warp's 16 columns.
+        const int lrow = (lane & 7) + ((lane >> 4) << 3);
+        const int lpiece = 2 * warp + ((lane >> 3) & 1);
+#pragma unroll
+        for (int s = 0; s < CHUNK_ROWS / 2 / 16; ++s) {
+          uint32_t a[4];
+          const int row = 16 * s + lrow;
+          ldsm_x4_t(a, w + row * 2 * COLS + ((lpiece ^ (row & 7)) * 16));
+#pragma unroll
+          for (int rb = 0; rb < NRB; ++rb) {
+            const bf16* xr = xj + (rb * 8 + g) * XS + 16 * s;
+            mma16816(acc[s % SETS][rb], a, *reinterpret_cast<const uint32_t*>(xr + 2 * t),
+                     *reinterpret_cast<const uint32_t*>(xr + 8 + 2 * t));
+          }
+        }
+      } else {
+        // 32 byte rows an ldmatrix: int8, 2 k16 slices (k 0-7 and 8-15 of each,
+        // k slot = K row); int4, 4 slices of 8 byte rows, whose k slots 2t, 2t+1
+        // hold K rows 4t, 4t+2 (low nibbles) and 2t+8, 2t+9 rows 4t+1, 4t+3.
+#pragma unroll
+        for (int it = 0; it < CHUNK_ROWS / 32; ++it) {
+          uint32_t r[4];
+          const int row = 32 * it + lane;
+          ldsm_x4_t(r, w + row * COLS + ((warp ^ (row & 7)) * 16));
+#pragma unroll
+          for (int h = 0; h < (WK == 0 ? 2 : 4); ++h) {
+            uint32_t a[4];
+            if constexpr (WK == 0) {
+              a[0] = i8x2(r[2 * h]);
+              a[1] = i8x2(r[2 * h] >> 8);
+              a[2] = i8x2(r[2 * h + 1]);
+              a[3] = i8x2(r[2 * h + 1] >> 8);
+            } else {
+              a[0] = i4x2(r[h]);
+              a[1] = i4x2(r[h] >> 8);
+              a[2] = i4x2(r[h] >> 4);
+              a[3] = i4x2(r[h] >> 12);
+            }
+            const int s = (WK == 0 ? 2 : 4) * it + h;
+#pragma unroll
+            for (int rb = 0; rb < NRB; ++rb) {
+              const bf16* xr = xj + (rb * 8 + g) * XS + 16 * s;
+              if constexpr (WK == 0) {
+                mma16816(acc[h % SETS][rb], a, *reinterpret_cast<const uint32_t*>(xr + 2 * t),
+                         *reinterpret_cast<const uint32_t*>(xr + 8 + 2 * t));
+              } else {
+                const uint2 b = *reinterpret_cast<const uint2*>(xr + 4 * t);
+                mma16816(acc[h % SETS][rb], a, b.x, b.y);
+              }
+            }
+          }
+        }
+      }
+      pop(ring);
+    }
+  }
+  if constexpr (WK == 2) {
+    // (column 16 w + g, row 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+    const int c0 = 16 * warp + g;
+#pragma unroll
+    for (int rb = 0; rb < NRB; ++rb) {
+      const int r0 = rb * 8 + 2 * t;
+      ct[r0 * CT_STRIDE + c0] = acc[0][rb][0] + acc[1][rb][0];
+      ct[(r0 + 1) * CT_STRIDE + c0] = acc[0][rb][1] + acc[1][rb][1];
+      ct[r0 * CT_STRIDE + c0 + 8] = acc[0][rb][2] + acc[1][rb][2];
+      ct[(r0 + 1) * CT_STRIDE + c0 + 8] = acc[0][rb][3] + acc[1][rb][3];
+    }
+  } else {
+    const int c0 = 16 * warp + 2 * g;
+#pragma unroll
+    for (int rb = 0; rb < NRB; ++rb) {
+      const int r0 = rb * 8 + 2 * t;
+      ct[r0 * CT_STRIDE + c0] = acc[0][rb][0] + acc[1][rb][0];
+      ct[(r0 + 1) * CT_STRIDE + c0] = acc[0][rb][1] + acc[1][rb][1];
+      ct[r0 * CT_STRIDE + c0 + 1] = acc[0][rb][2] + acc[1][rb][2];
+      ct[(r0 + 1) * CT_STRIDE + c0 + 1] = acc[0][rb][3] + acc[1][rb][3];
+    }
+  }
+  csync();
+}
+
+// mma_item at the block count of 8 rows that B needs (B <= 32).
+template <int WK, bool CHAIN = false, int XB = X_BYTES>
+__device__ void run_mma(const Params& p, Ring& ring, const Prod& q, int idx, const bf16* x, bf16* X,
+                        float* ct) {
+  const int nrb = (p.s.B + 7) / 8;
+  if (nrb <= 1) mma_item<1, WK, CHAIN, XB>(p, ring, q, idx, x, X, ct);
+  else if (nrb <= 2) mma_item<2, WK, CHAIN, XB>(p, ring, q, idx, x, X, ct);
+  else mma_item<4, WK, CHAIN, XB>(p, ring, q, idx, x, X, ct);
 }
 
 // Epilogues: thread i owns column c = i % 128 of a tile and rows r0 + 2e
@@ -1163,6 +1342,8 @@ const char* refused_string(int code) {
     case REFUSED_WINDOW:
       return "the attention window leaves no shared memory for a ring of two weight chunks";
     case REFUSED_BUFFER: return "a scratch or item trace buffer smaller than the step needs";
+    case REFUSED_SMEM:
+      return "the weight ring, work area and item plan need more shared memory than a block has";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -3,138 +3,291 @@
 //
 // Replaces csm_tpu/ops/fused_decoder.py::fused_decode_codebooks (the Pallas
 // TPU kernel built by _make_kernel).  Same function: sample c0 from the
-// backbone's bf16-rounded logits, prefill the 4-layer decoder with
+// backbone's bf16-rounded logits, run the 4-layer decoder over
 // [proj(h); proj(embed(c0))] at positions 0..1, then for each codebook i in
 // 1..N-1 apply head slice i-1 to the last hidden, draw (top-k over the
 // logits' bf16 bit patterns, then Gumbel-max with the given noise; greedy is
 // a first-index argmax), honour the forced prefix, and (except after the
 // last codebook) run one decoder pass on the drawn token's pre-projected
 // embedding.  Weights are int8 per output channel with the RMSNorm weights
-// folded in (W8A16): each pre-norm product runs on the raw residual and
-// RMSNorm's per-row scale multiplies its output; the residual stream is f32.
-// Attention has bf16 operands (q, the K/V scratch, the probabilities) with
-// f32 scores and softmax, as the TPU kernel's.
+// folded in (W8A16): each pre-norm product runs on bf16 of the raw f32
+// residual and RMSNorm's per-row scale multiplies its output.  Attention has
+// bf16 operands (q, the K/V scratch, the probabilities) with f32 scores and
+// softmax; the head is bf16, int8 (+ per-column scale) or f32 (CUDA cores).
 //
 // What the TPU kernel did for its hardware is not carried over: there it kept
-// ~106 MB of int8 weights resident in VMEM for all 31 passes.  An H100 has a
-// 50 MB L2 and 227 KB of shared memory per block, so every pass streams the
-// weights from device memory: 31 passes x the decoder's int8 weights plus 31
-// head slices, ~1.07 ms per frame at 3.35 TB/s.  Between dependent stages
-// the whole grid waits at a barrier, so the frame's time is the barriers'
-// latency as much as the bytes.  The design:
+// ~106 MB of int8 weights resident in VMEM for all passes.  An H100 has a
+// 50 MB L2 and 227 KB of shared memory a block, so every pass streams the
+// weights from device memory.  What bounds it is bytes: 31 passes over the
+// 111 MB of int8 decoder weights (27.8 MB a layer) plus the head slices,
+// ~1.07 ms a frame at 3.35 TB/s.  The design is the backbone step's
+// (csrc/bb_step.cuh, whose flags, tickets, weight ring and int8 / bf16
+// products it uses):
 //
-// - Stages.  Per layer QKV product | RoPE, K/V write and attention per
-//   (stream, query head) | o-proj | gate-up | down, a grid barrier after
-//   each; per codebook the head product, then the draws, which wait on the
-//   head items' arrival counter (not a grid barrier), then one barrier.  The
-//   epilogues are folded into the next product's operand staging: the
-//   residual add goes into gate-up's and the next layer's QKV staging (the
-//   items of column tile 0 write the residual slice and the per-row sum of
-//   squares of their K slice, from which RMSNorm's scale is summed), SwiGLU
-//   into the down product's staging, the final residual and norm into the
-//   head's, the drawn token's embedding row into the next pass's QKV
-//   staging.  1 + 31 x 21 - 1 = 651 grid barriers a frame (none after the
-//   last draw); the old design took 1,055.
-// - Weights streamed into shared memory.  The order of every block's work
-//   items is fixed by the shapes, so each block keeps a ring of RING weight
-//   chunks (16 KB: 128 K rows x 128 columns int8, or 64 x 128 bf16) in
-//   flight by cp.async, refilled as it consumes them across stage, layer
-//   and pass boundaries.  The ring is shallow and is not topped up right
-//   before a barrier: deeper rings, and refills before the wait, measured
-//   slower on the H100 (PERF.md), as the bytes in flight delay the next
-//   stage's latency-bound loads of its operand rows.
-// - Shallow, fixed K splits.  A product's K split (KS <= 8, pick_ks) is a
-//   function of its shape only, so a row's sums run in the same order at
-//   every batch size and every grid size.
-// - Tensor cores.  mma.sync m16n8k16 bf16 with f32 accumulation: the
-//   weights widened to bf16 in registers as the 16-row operand (16 output
-//   columns), up to 8 activation rows as the 8-column operand.  int8 and
-//   bf16 values are exact in bf16, so only the order of the f32 sums
-//   differs from the plain version.  The f32 head keeps FMAs.
-// - The draw: top-k's k-th value by a radix select over the 16 high bits of
-//   the order keys (2 rounds of 8 bits with a 256-bin shared histogram),
-//   which finds the bisection's value with its tie rule.
-// - The barrier: arrive by a release add; a block that finds it still
-//   closed polls an acquire load every ~100 ns; a lost arrival traps after
-//   ~2^35 cycles instead of hanging the card.  One block per SM.
-// - The trace: with a stamps buffer, block 0 records its clock as it leaves
-//   each barrier, which gives every stage's time (chip_smoke phase 5).
+// - One cooperative launch a frame, one block per SM, all resident, no grid
+//   barrier.  Every block walks one static list of work items fixed by the
+//   shapes: first the draws of c0 (one item a stream), then one pass a
+//   position p = 0 .. N-1 (position 0 is x0, position 1 the embedding of c0,
+//   position p the embedding of codebook p-1): an input item per 128
+//   residual columns, per layer the QKV items (128 columns by one K split),
+//   attention per (kv head, stream), o-proj, gate-up (each tile 64 gate
+//   columns with their 64 up columns, so SwiGLU is the tile's epilogue) and
+//   down; then, from position 1 on, the final norm per 128 columns, the head
+//   slice's items and one draw item a stream (codebook p).  Item i falls to
+//   block i mod grid, which takes its items in list order; an item waits only
+//   on items before it in the list, each at a block past it or at it, so
+//   with every block resident nothing can deadlock.  Running position 0 as a
+//   pass of its own keeps every pass at B rows (B <= 32); its rows are
+//   computed row by row as in a two-row pass, and the c0 draws overlap it.
+// - Flags in place of barriers: per (pass, layer) item flags in device
+//   memory stamped with the launch's epoch (no reset between launches).  An
+//   input item waits on the previous codebook's draws and the previous
+//   pass's last down tile of its columns; a QKV split on the input (layer 0)
+//   or down tiles of its K range; attention on the QKV tiles of its group's
+//   q heads, k and v; an o-proj split on the attention items of its K range;
+//   gate-up on the o-proj tiles of its range; down on the gate-up pair tiles
+//   of its range; the final norm on every last down tile (its scale needs
+//   the whole row); a head split on the final tiles of its range; a draw on
+//   every head tile.  RMSNorm stays folded into the products: a split starts
+//   once the tiles of its own K range are in, and the row's scale (summed in
+//   order from the residual tiles' sums of squares) is applied in the tile's
+//   epilogue.
+// - Split sums reduced once per tile: each K split writes its f32 partial
+//   and takes a ticket on the tile; the last to arrive sums the partials in
+//   split order and applies the epilogue once (scales and RMS scale, RoPE and
+//   the K/V rows for QKV; the residual add with the tile's per-row sums of
+//   squares and the next product's bf16 operand for o-proj and down; SwiGLU
+//   for gate-up; the head's scale and bf16 rounding).  So a product stages a
+//   compact bf16 operand of B x K (64 KB at B = 32, K = 1024) once per
+//   chunk group, instead of summing the previous product's partials in every
+//   column tile.  K splits come from pick_ks, by the shape alone (never by B
+//   or the grid), so a stream's sums run in the same order alone and batched,
+//   and bitwise the same from launch to launch.
+// - A weight stream that never waits on data: 8 consumer warps and a
+//   producer warpgroup that copies the block's weight chunks (16 KB: 128
+//   int8 rows or 64 bf16 rows of 128 columns) in consumption order across
+//   stages, layers and passes into a ring of RING mbarrier-tracked slots by
+//   cp.async, waiting only for a free slot.  Rings of 3 to 8 chunks measured
+//   within 1 % of each other at B = 1, 8 and 32 on the H100 (PERF.md); 6
+//   leaves shared memory for longer item plans.  PR 7 found deeper rings
+//   slower because after each of its grid barriers every block re-summed its
+//   operand from L2 while its ring refilled, and the bytes in flight delayed
+//   those loads; here an operand is written once per tile and its staging
+//   is one compact read, so the depth no longer trades against it.  Asking
+//   L2 for the chunks past the ring measured slower (as for the backbone).
+// - Products on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
+//   sums; up to 4 blocks of 8 rows an operand), each split's slices chained
+//   in order in one accumulator, as a tensor-core GEMM of the plain version
+//   sums them (two interleaved chains read further from it); the f32 head
+//   on the CUDA cores, its weights read directly.  Attention and the draw (a
+//   radix select of the k-th bf16 key in two 8-bit rounds, its tie rule,
+//   then Gumbel-max, the row's logits and noise held in registers) run on a
+//   whole block.
+// - Counters: the kernel's own count of grid barriers (it has none), of its
+//   items, of the items whose waits found a flag still closed and of the
+//   producer's waits for a free slot, left in the scratch after each launch.
+// - Traces: with a stamps buffer, block 0 records its clock at its start and
+//   as it leaves each stage of the list; with an item buffer, every item's
+//   stage, start, end of waits, marks inside it and end.
 //
-// Data another block wrote is read through L2 (__ldcg).  Scratch (one f32
-// buffer, laid out by Layout) and the K/V scratch are the caller's, and may be
-// kept across calls: every value is written before it is read.  bar[0]
-// (arrivals) re-arms itself at each barrier, bar[1] (the generation) only
-// has to change, bar[2] (head arrivals) is zeroed by block 0 before the
-// first barrier, and bar[3] receives the launch's count of grid barriers.
+// Data another block wrote is read through L2 (__ldcg).  The scratch (Layout:
+// residual, operands, logits, K/V rows, partials, flags, tickets, counters) is
+// the caller's and is kept across calls: flags, tickets and counters are
+// zeroed once when it is allocated, and every launch passes the next epoch.
 
-#include "sync.cuh"
-#include "w8a16.cuh"
+#include "bb_step.cuh"
 
 namespace {
 
-using namespace w8a16;
-using namespace sync_ptx;
-
-constexpr int HD_MAX = 128;
-constexpr int G_MAX = 8;
-constexpr int NP_MAX = 64;
-constexpr int COLS = 128;            // output columns of a work item
-constexpr int RING = 2;              // weight chunks in flight per block
-constexpr int CHUNK_BYTES = 16384;
-constexpr int X_BYTES = 49152;       // staged bf16 operand rows of a product
+constexpr int NP_MAX = 64;           // positions a stream's K/V rows hold (N)
 constexpr int HEAD_KINDS = 3;        // 0 bf16, 1 int8 (+ scale), 2 f32
+constexpr int RING = 6;              // weight chunks in a block's ring (PERF.md)
+constexpr int DRAW_VPT = 16;         // logits a thread of a draw holds (Va_pad <= DRAW_VPT NT)
+// Staged operand rows of a product: 32 rows of a whole 1024-row split (8
+// int8 chunks) and their padding, so a gate-up or down split at B = 32
+// stages once (bb_step.cuh's X_BYTES holds 7 chunks).
+constexpr int FD_X_BYTES = 32 * (8 * CHUNK_ROWS + 8) * 2;
+constexpr int PASS_EXTRA = 4;        // stages of a pass besides its layers': input, final, head, draw
+constexpr int SYNC_OUT = 4;          // counter words of the last launch: scratch int32 [4, 8)
+constexpr int K_DRAW = K_FINAL + 1;  // item kinds: bb_step.cuh's Kind, and the draw
 
 // ---------------------------------------------------------------------------
-// Shapes: K splits, chunks, scratch layout (host and device agree)
+// Shapes, schedule, scratch layout (host and device agree)
 // ---------------------------------------------------------------------------
 
-// K splits of a [K, N] product: 8, halved while the items would still number
-// 64 or more (enough to spread the weights over the grid; every split is one
-// more partial for the next stage's staging to sum), or while 16-row slices
-// do not divide K.  Shapes only.
-__host__ __device__ inline int pick_ks(int K, int N) {
-  const int tiles = N / COLS;
-  int ks = 8;
-  while (ks > 1 && (K % (16 * ks) != 0 || tiles * (ks / 2) >= 64)) ks /= 2;
-  return ks;
-}
-
-// K rows of one chunk of a split of kc rows, by weight type (0 int8, 1 bf16).
-__host__ __device__ inline int chunk_rows(int kc, int wkind) {
-  const int cap = wkind == 0 ? 128 : 64;
-  return kc < cap ? kc : cap;
-}
-
-struct Layout {
-  long long ha, hm, attn, p_qkv, p_o, p_gu, p_down, p_head, ss_a, ss_m, total;
+struct FdShape {
+  int B, N, L, D, F, nq, nkv, hd, G, QKVN, nqh, Va, Va_pad, head_kind;
+  int tq, td, tg, th;           // column tiles: QKV, D (o-proj, down), gate-up pairs, head
+  int ksq, kso, ksg, ksd, ksh;  // K splits
+  int hr;                       // K rows of a head chunk (bf16 64, int8 128; f32: 32, no ring)
 };
 
-__host__ __device__ inline Layout layout(int B, int D, int QKVN, int nqh, int F, int Va_pad,
-                                         int ks_qkv, int ks_o, int ks_gu, int ks_down,
-                                         int ks_head) {
-  const long long R = 2 * B;
-  Layout o;
+__host__ __device__ inline FdShape fd_shape(int B, int N, int L, int D, int F, int nq, int nkv,
+                                            int hd, int Va, int Va_pad, int head_kind) {
+  FdShape s;
+  s.B = B; s.N = N; s.L = L; s.D = D; s.F = F; s.nq = nq; s.nkv = nkv; s.hd = hd;
+  s.Va = Va; s.Va_pad = Va_pad; s.head_kind = head_kind;
+  s.G = nkv > 0 ? nq / nkv : 0;
+  s.QKVN = (nq + 2 * nkv) * hd;
+  s.nqh = nq * hd;
+  s.tq = s.QKVN / COLS;
+  s.td = D / COLS;
+  s.tg = F / (COLS / 2);
+  s.th = Va_pad / COLS;
+  s.ksq = pick_ks(D, s.tq, CHUNK_ROWS);
+  s.kso = pick_ks(s.nqh, s.td, CHUNK_ROWS);
+  s.ksg = pick_ks(D, s.tg, CHUNK_ROWS);
+  s.ksd = pick_ks(F, s.td, CHUNK_ROWS);
+  s.hr = head_kind == 0 ? CHUNK_ROWS / 2 : head_kind == 1 ? CHUNK_ROWS : CHUNK_ROWS / 4;
+  s.ksh = pick_ks(D, s.th, s.hr);
+  return s;
+}
+
+// Items of the frame's list: the c0 draws, pass 0 (input, layers), then
+// passes 1 .. N-1 (input, layers, final norm, head, draws).
+struct FdSched {
+  int n_draw, n_init, n_qkv, n_att, n_o, n_gu, n_down, per_layer, n_fin, n_head;
+  int pass0, pass, total;
+};
+
+__host__ __device__ inline FdSched fd_sched(const FdShape& s) {
+  FdSched c;
+  c.n_draw = s.B;
+  c.n_init = s.td;
+  c.n_qkv = s.tq * s.ksq;
+  c.n_att = s.nkv * s.B;
+  c.n_o = s.td * s.kso;
+  c.n_gu = s.tg * s.ksg;
+  c.n_down = s.td * s.ksd;
+  c.per_layer = c.n_qkv + c.n_att + c.n_o + c.n_gu + c.n_down;
+  c.n_fin = s.td;
+  c.n_head = s.th * s.ksh;
+  c.pass0 = c.n_init + s.L * c.per_layer;
+  c.pass = c.pass0 + c.n_fin + c.n_head + c.n_draw;
+  c.total = c.n_draw + c.pass0 + (s.N - 1) * c.pass;
+  return c;
+}
+
+struct FdItem {
+  int kind, pass, l, idx;
+};
+
+__device__ __forceinline__ FdItem fd_item_at(const FdSched& c, int L, int g) {
+  if (g < c.n_draw) return FdItem{K_DRAW, 0, 0, g};  // codebook 0
+  g -= c.n_draw;
+  int p = 0, i = g;
+  if (g >= c.pass0) {
+    g -= c.pass0;
+    p = 1 + g / c.pass;
+    i = g % c.pass;
+  }
+  if (i < c.n_init) return FdItem{K_INIT, p, 0, i};
+  i -= c.n_init;
+  if (i < L * c.per_layer) {
+    const int l = i / c.per_layer;
+    int j = i - l * c.per_layer;
+    if (j < c.n_qkv) return FdItem{K_QKV, p, l, j};
+    j -= c.n_qkv;
+    if (j < c.n_att) return FdItem{K_ATT, p, l, j};
+    j -= c.n_att;
+    if (j < c.n_o) return FdItem{K_O, p, l, j};
+    j -= c.n_o;
+    if (j < c.n_gu) return FdItem{K_GU, p, l, j};
+    return FdItem{K_DOWN, p, l, j - c.n_gu};
+  }
+  i -= L * c.per_layer;
+  if (i < c.n_fin) return FdItem{K_FINAL, p, L, i};
+  i -= c.n_fin;
+  if (i < c.n_head) return FdItem{K_HEAD, p, L, i};
+  return FdItem{K_DRAW, p, L, i - c.n_head};
+}
+
+// Stage of an item in the traces: 0 the c0 draws; then per pass p, from 1 +
+// p (5 L + PASS_EXTRA): input, 5 per layer (QKV, attention, o-proj, gate-up,
+// down), final norm, head, draws.
+__device__ __forceinline__ int fd_stage_of(const FdItem& it, int L) {
+  if (it.kind == K_DRAW && it.pass == 0) return 0;
+  const int base = 1 + it.pass * (5 * L + PASS_EXTRA);
+  switch (it.kind) {
+    case K_INIT: return base;
+    case K_FINAL: return base + 5 * L + 1;
+    case K_HEAD: return base + 5 * L + 2;
+    case K_DRAW: return base + 5 * L + 3;
+    default: return base + 1 + 5 * it.l + (it.kind - K_QKV);
+  }
+}
+
+__host__ __device__ inline int fd_stage_count(int N, int L) { return 1 + N * (5 * L + PASS_EXTRA); }
+
+struct FdLayout {
+  long long sync, h, ss_a, ss_m, xa, xm, xo, xd, qb, xh, xhf, lg, kc, vc;
+  long long p_qkv, p_o, p_gu, p_down, p_head;
+  long long f_draw, f_init, f_qkv, f_att, f_o, f_gu, f_dn, f_fin, f_head;
+  long long t_qkv, t_o, t_gu, t_dn, t_head, total;
+};
+
+// Byte offsets into the scratch, each 128-aligned; the counters first.
+__host__ __device__ inline FdLayout fd_layout(const FdShape& s) {
+  FdLayout o;
   long long at = 0;
-  auto take = [&](long long n) { const long long x = at; at += (n + 31) / 32 * 32; return x; };
-  o.ha = take(R * D);
-  o.hm = take(R * D);
-  o.attn = take(R * nqh);
-  o.p_qkv = take(ks_qkv * R * QKVN);
-  o.p_o = take(ks_o * R * D);
-  o.p_gu = take(ks_gu * R * 2 * F);
-  o.p_down = take(ks_down * R * D);
-  o.p_head = take(ks_head * B * Va_pad);
-  o.ss_a = take(ks_qkv * R);
-  o.ss_m = take(ks_gu * R);
+  auto take = [&](long long bytes) { const long long x = at; at += (bytes + 127) / 128 * 128; return x; };
+  const long long B = s.B, N = s.N, L = s.L;
+  o.sync = take(16 * 4);  // int32: [0, 4) sums of this launch, [4, 8) the last launch's, 8 done
+  o.h = take(B * s.D * 4);
+  o.ss_a = take(B * s.td * 4);
+  o.ss_m = take(B * s.td * 4);
+  o.xa = take(B * s.D * 2);
+  o.xm = take(B * s.D * 2);
+  o.xo = take(B * s.nqh * 2);
+  o.xd = take(B * s.F * 2);
+  o.qb = take(B * s.nqh * 2);
+  o.xh = take(B * s.D * 2);
+  o.xhf = take(B * s.D * 4);
+  o.lg = take(B * s.Va_pad * 4);
+  o.kc = take(L * B * s.nkv * N * s.hd * 2);
+  o.vc = take(L * B * s.nkv * N * s.hd * 2);
+  o.p_qkv = take((long long)s.ksq * s.tq * B * COLS * 4);
+  o.p_o = take((long long)s.kso * s.td * B * COLS * 4);
+  o.p_gu = take((long long)s.ksg * s.tg * B * COLS * 4);
+  o.p_down = take((long long)s.ksd * s.td * B * COLS * 4);
+  o.p_head = take((long long)s.ksh * s.th * B * COLS * 4);
+  o.f_draw = take(N * B * 4);
+  o.f_init = take(N * s.td * 4);
+  o.f_qkv = take(N * L * s.tq * 4);
+  o.f_att = take(N * L * s.nkv * B * 4);
+  o.f_o = take(N * L * s.td * 4);
+  o.f_gu = take(N * L * s.tg * 4);
+  o.f_dn = take(N * L * s.td * 4);
+  o.f_fin = take(N * s.td * 4);
+  o.f_head = take(N * s.th * 4);
+  o.t_qkv = take(s.tq * 4);
+  o.t_o = take(s.td * 4);
+  o.t_gu = take(s.tg * 4);
+  o.t_dn = take(s.td * 4);
+  o.t_head = take(s.th * 4);
   o.total = at;
   return o;
 }
 
-struct Params {
-  int B, N, Va, Va_pad, D, L, nq, nkv, hd, F, NP;
-  int greedy, head_kind, emb_bf16;  // head_kind: 0 bf16, 1 int8 (+ scale), 2 f32
-  int ks_qkv, ks_o, ks_gu, ks_down, ks_head;
-  float eps, scale;
+// Shared memory of the work area: a product's staged operand and sums tile,
+// attention's q, K and V rows and scores, a draw's logits row and histogram.
+__host__ __device__ inline int fd_att_bytes(const FdShape& s) {
+  return 4 * (s.G * s.hd + 2 * s.N * s.hd + s.G * s.N);
+}
+__host__ __device__ inline int fd_draw_bytes(const FdShape& s) { return 4 * (256 + 2 * NWARP); }
+__host__ __device__ inline int fd_work_bytes(const FdShape& s) {
+  const int prod = FD_X_BYTES + CT_BYTES, att = fd_att_bytes(s), drw = fd_draw_bytes(s);
+  const int m = prod > att ? prod : att;
+  return ((m > drw ? m : drw) + 127) / 128 * 128;
+}
+
+struct FdParams {
+  Params bb;  // what bb_step.cuh's pieces read: s.B, s.D, s.td, eps, ring, h, item_ns
+  FdShape s;
+  unsigned epoch;
+  int work;   // bytes of the work area
+  int greedy, emb_bf16;
+  float scale;
   const float* temp;    // [B]
   const int* topk;      // [B], in [1, Va]
   const int* forced;    // [B, N], -1 = draw
@@ -142,466 +295,435 @@ struct Params {
   const float* c0lg;    // [B, Va], bf16-rounded
   const int8_t *wqkv, *wo, *wgu, *wdown;  // [L, K, N]
   const float *sqkv, *so, *sgu, *sdown;   // [L, N]
-  const float *cosb, *sinb;               // [P, hd]
+  const float *cosb, *sinb;               // [P >= N, hd]
   const void* head;                       // [N-1, D, Va_pad]
   const float* head_scale;                // [N-1, Va_pad] (int8 head)
   const float* gumbel;                    // [N, B, Va]
-  const void* emb;                        // [rows, D] bf16 or f32
+  const void* emb;                        // [N Va, D] bf16 or f32
   int* samples;                           // [B, N]
   float* out_logits;                      // [N, B, Va_pad] or null
   int* out_draws;                         // [B, N] or null
-  // Scratch (Layout): residual stream in and mid layer [2B, D], attention
-  // output [2B, nq hd], each product's K-split partials [KS, R, N], the
-  // per-slice sums of squares of h_in and h_mid [KS, R].
-  float *ha, *hm, *attn, *p_qkv, *p_o, *p_gu, *p_down, *p_head, *ss_a, *ss_m;
-  bf16 *kc, *vc;                          // [L, B, nkv, NP, hd]
-  unsigned* bar;                          // [4]
-  unsigned long long* stamps;             // [>= barriers + 1] or null: the trace
+  unsigned* sync;                         // the counters
+  float *ss_a, *ss_m, *xhf, *lg;
+  float *p_qkv, *p_o, *p_gu, *p_down, *p_head;
+  bf16 *xa, *xm, *xo, *xd, *qb, *xh, *kc, *vc;
+  unsigned *f_draw, *f_init, *f_qkv, *f_att, *f_o, *f_gu, *f_dn, *f_fin, *f_head;
+  unsigned *t_qkv, *t_o, *t_gu, *t_dn, *t_head;
+  unsigned long long* stamps;  // [fd_stage_count + 1] or null
 };
 
-// One product of the frame's plan: stage st of a pass (4 per layer: QKV,
-// o-proj, gate-up, down; then 4L: the head slice of the pass).  Item it is
-// column tile it % tiles of K split it / tiles, kc rows of W streamed in nch
-// chunks of CR rows.
-struct Prod {
-  const char* W;
-  float* part;
-  int K, N, KS, kc, CR, nch, tiles, items, wkind;  // wkind 0 int8, 1 bf16, 2 f32
-  int elt;
-};
+// Flags of pass p (layer l).
+__device__ __forceinline__ unsigned* f_layer(unsigned* f, const FdShape& s, int p, int l, int n) {
+  return f + ((size_t)p * s.L + l) * n;
+}
 
-__device__ __forceinline__ Prod prod(const Params& p, int st, int pass) {
+// A product of the frame: weights (this layer's, or pass p's head slice),
+// shape, splits, partials, ticket.  nch 0: the f32 head, read directly.
+__device__ __forceinline__ Prod fd_prod(const FdParams& p, int kind, int pass, int l) {
+  const FdShape& s = p.s;
   Prod q;
-  const int QKVN = (p.nq + 2 * p.nkv) * p.hd, nqh = p.nq * p.hd;
-  if (st < 4 * p.L) {
-    const int l = st >> 2;
-    q.wkind = 0;
-    q.elt = 1;
-    switch (st & 3) {
-      case 0: q.W = (const char*)(p.wqkv + (size_t)l * p.D * QKVN); q.K = p.D; q.N = QKVN;
-              q.KS = p.ks_qkv; q.part = p.p_qkv; break;
-      case 1: q.W = (const char*)(p.wo + (size_t)l * nqh * p.D); q.K = nqh; q.N = p.D;
-              q.KS = p.ks_o; q.part = p.p_o; break;
-      case 2: q.W = (const char*)(p.wgu + (size_t)l * p.D * 2 * p.F); q.K = p.D; q.N = 2 * p.F;
-              q.KS = p.ks_gu; q.part = p.p_gu; break;
-      default: q.W = (const char*)(p.wdown + (size_t)l * p.F * p.D); q.K = p.F; q.N = p.D;
-               q.KS = p.ks_down; q.part = p.p_down; break;
+  q.P = 1;
+  q.pair = 0;
+  int kr = CHUNK_ROWS;
+  switch (kind) {
+    case K_QKV:
+      q.K = s.D; q.N = s.QKVN; q.KS = s.ksq; q.tiles = s.tq; q.part = p.p_qkv; q.ticket = p.t_qkv;
+      q.W = p.wqkv + (size_t)l * s.D * s.QKVN;
+      break;
+    case K_O:
+      q.K = s.nqh; q.N = s.D; q.KS = s.kso; q.tiles = s.td; q.part = p.p_o; q.ticket = p.t_o;
+      q.W = p.wo + (size_t)l * s.nqh * s.D;
+      break;
+    case K_GU:
+      q.K = s.D; q.N = 2 * s.F; q.KS = s.ksg; q.tiles = s.tg; q.part = p.p_gu; q.ticket = p.t_gu;
+      q.W = p.wgu + (size_t)l * s.D * 2 * s.F;
+      q.pair = 1;
+      break;
+    case K_DOWN:
+      q.K = s.F; q.N = s.D; q.KS = s.ksd; q.tiles = s.td; q.part = p.p_down; q.ticket = p.t_dn;
+      q.W = p.wdown + (size_t)l * s.F * s.D;
+      break;
+    default: {  // the head slice of pass p (codebook p)
+      const int eb = s.head_kind == 0 ? 2 : s.head_kind == 1 ? 1 : 4;
+      q.K = s.D; q.N = s.Va_pad; q.KS = s.ksh; q.tiles = s.th; q.part = p.p_head;
+      q.ticket = p.t_head;
+      q.W = static_cast<const int8_t*>(p.head) + (size_t)(pass - 1) * s.D * s.Va_pad * eb;
+      kr = s.hr;
+      break;
     }
-  } else {
-    q.wkind = p.head_kind == 0 ? 1 : p.head_kind == 1 ? 0 : 2;
-    q.elt = q.wkind == 0 ? 1 : q.wkind == 1 ? 2 : 4;
-    q.W = static_cast<const char*>(p.head) + (size_t)pass * p.D * p.Va_pad * q.elt;
-    q.K = p.D;
-    q.N = p.Va_pad;
-    q.KS = p.ks_head;
-    q.part = p.p_head;
   }
   q.kc = q.K / q.KS;
-  q.CR = q.wkind == 2 ? q.kc : chunk_rows(q.kc, q.wkind);
-  q.nch = q.kc / q.CR;
-  q.tiles = q.N / COLS;
-  q.items = q.tiles * q.KS;
+  q.nch = kind == K_HEAD && s.head_kind == 2 ? 0 : q.kc / kr;
   return q;
 }
 
-// The block's ring of weight chunks.  The issue cursor (st, pass, it, ch)
-// walks the block's chunks in the order the stages consume them, across
-// layers and passes; top_up keeps RING chunks in flight.  Block-uniform.
-struct Ring {
-  uint8_t* buf;  // RING x CHUNK_BYTES, 128-aligned
-  int issued, consumed;
-  int st, pass, it, ch;
-};
+__device__ __forceinline__ bool fd_is_prod(int kind) {
+  return kind == K_QKV || kind == K_O || kind == K_GU || kind == K_DOWN || kind == K_HEAD;
+}
 
-// Moves the cursor to the next stage holding an item of this block whose
-// weights go through the ring (the f32 head reads its weights directly).
-__device__ void settle(const Params& p, Ring& r) {
-  while (r.pass < p.N - 1) {
-    const Prod q = prod(p, r.st, r.pass);
-    if (q.wkind != 2 && r.it < q.items) return;
-    r.it = blockIdx.x;
-    r.ch = 0;
-    if (++r.st > 4 * p.L) {
-      r.st = 0;
-      ++r.pass;
+// The block's plan for the producer (bb_step.cuh's Plan, each entry with
+// its own chunk width: bf16 head rows are 16 pieces, int8 rows 8).
+__device__ void fd_build_plan(const FdParams& p, const FdSched& sc, Plan* plan, int n_mine) {
+  for (int i = threadIdx.x; i < n_mine; i += blockDim.x) {
+    const FdItem it = fd_item_at(sc, p.s.L, blockIdx.x + i * gridDim.x);
+    Plan e{nullptr, 0, 0, 0, 8};
+    if (fd_is_prod(it.kind)) {
+      const Prod q = fd_prod(p, it.kind, it.pass, it.l);
+      if (q.nch > 0) {
+        const int eb = it.kind == K_HEAD && p.s.head_kind == 0 ? 2 : 1;
+        const int ct = it.idx % q.tiles, ks = it.idx / q.tiles;
+        e.base = q.W + (size_t)ks * q.kc * q.N * eb + (q.pair ? ct * 64 : ct * COLS) * eb;
+        e.N = q.N * eb;
+        e.nch = q.nch;
+        e.coff = q.pair ? (p.s.F - 64) * eb : 0;
+        e.pieces = eb == 2 ? 16 : 8;
+      }
     }
+    plan[i] = e;
   }
-}
-
-// Chunk ch of item it: CR rows x 128 columns, each row's 16-byte pieces
-// stored at piece c ^ 2 ((row / 4) % 4), so the fragment reads of a warp
-// fall in distinct banks.
-__device__ void issue_one(const Params& p, Ring& r) {
-  const Prod q = prod(p, r.st, r.pass);
-  uint8_t* dst = r.buf + (r.issued % RING) * CHUNK_BYTES;
-  const int ct = r.it % q.tiles, ks = r.it / q.tiles;
-  const int k0 = ks * q.kc + r.ch * q.CR;
-  const int row_bytes = COLS * q.elt, per_row = row_bytes / 16;
-  const char* src = q.W + ((size_t)k0 * q.N + (size_t)ct * COLS) * q.elt;
-  for (int i = threadIdx.x; i < q.CR * per_row; i += NT) {
-    const int row = i / per_row, c = i % per_row;
-    cp_async16(dst + row * row_bytes + ((c ^ (2 * ((row >> 2) & 3))) * 16),
-               src + (size_t)row * q.N * q.elt + c * 16);
-  }
-  cp_async_commit();
-  ++r.issued;
-  if (++r.ch == q.nch) {
-    r.ch = 0;
-    r.it += gridDim.x;
-    settle(p, r);
-  }
-}
-
-__device__ __forceinline__ void top_up(const Params& p, Ring& r) {
-  while (r.issued - r.consumed < RING && r.pass < p.N - 1) issue_one(p, r);
-}
-
-// The oldest chunk in flight, once it has landed for every thread.  Past
-// the barrier every thread is done with the chunk before it, whose slot then
-// takes the next chunk of the cursor.
-__device__ __forceinline__ const uint8_t* front(const Params& p, Ring& r) {
-  cp_async_wait(r.issued - r.consumed - 1);
   __syncthreads();
-  top_up(p, r);
-  return r.buf + (r.consumed % RING) * CHUNK_BYTES;
 }
 
-__device__ __forceinline__ void pop(Ring& r) { ++r.consumed; }
+// An item's waits are over: records whether any thread found a flag closed
+// (``closed`` is this item's word of shared memory; the main loop reads it).
+__device__ __forceinline__ void waits_done(bool waited, int* closed) {
+  if (waited) *closed = 1;
+  csync();
+}
+
+__device__ __forceinline__ float emb_at(const FdParams& p, size_t row, int k) {
+  return p.emb_bf16 ? __bfloat162float(static_cast<const bf16*>(p.emb)[row * p.s.D + k])
+                    : static_cast<const float*>(p.emb)[row * p.s.D + k];
+}
 
 // ---------------------------------------------------------------------------
-// Products: operand staging with the folded epilogues, mma work items
+// Row items: the pass's input, the final norm
 // ---------------------------------------------------------------------------
 
-// Sum of the KS (<= 8) partials of element (r, n) of an [R, N] product, in
-// order; the loads are issued together.
-__device__ __forceinline__ float split8(const float* part, int KS, int R, int N, int r, int n) {
-  float v[8];
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks)
-    v[ks] = ks < KS ? __ldcg(part + ((size_t)ks * R + r) * N + n) : 0.f;
-  float a = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks)
-    if (ks < KS) a += v[ks];
-  return a;
-}
-
-// SwiGLU of element (r, n) from gate | up split sums [KS, R, 2F], scales s
-// and the row's RMS scale, rounded to bf16: the down product's operand.
-__device__ __forceinline__ float swiglu8(const float* part, int KS, int R, int F, int r, int n,
-                                         const float* __restrict__ s, float rsr) {
-  const float g = split8(part, KS, R, 2 * F, r, n) * __ldg(s + n) * rsr;
-  const float u = split8(part, KS, R, 2 * F, r, F + n) * __ldg(s + F + n) * rsr;
-  return bf16r(g * (1.f / (1.f + expf(-g))) * u);
-}
-
-enum OpKind { OP_INPUT, OP_RES, OP_ATTN, OP_SWIGLU, OP_HEAD };
-
-// The operand of a product, row r and K index k, in f32.
-//   OP_INPUT: the pass's input row (pass 0: x0 and the embedding of c0;
-//             then the embedding of the codebook drawn last);
-//   OP_RES:   h_src + (the previous product's split sum) s: the residual;
-//   OP_ATTN:  the attention output (bf16-valued);
-//   OP_SWIGLU: SwiGLU of the gate-up split sums, RMS scale rsv[r] (bf16-valued);
-//   OP_HEAD:  stream r's last row of the final residual, times rsv[r].
-struct Operand {
-  int kind, R, T, pass;
-  int Rp;              // rows of the partials read (OP_RES, OP_HEAD: the pass's R)
-  const float* h_src;  // OP_RES, OP_HEAD
-  const float* part;   // split sums read (OP_RES, OP_SWIGLU, OP_HEAD)
-  int ks;              // their K splits
-  const float* s;      // their per-column scales
-  float* h_dst;        // OP_INPUT, OP_RES: the residual slice written by column tile 0
-  float* ss;           // and the per-row sums of squares of the slice, [KS, R]
-  const float* rsv;    // shared: per-row RMS scales (OP_SWIGLU, OP_HEAD)
-};
-
-__device__ __forceinline__ float emb_at(const Params& p, int row, int k) {
-  return p.emb_bf16 ? __bfloat162float(static_cast<const bf16*>(p.emb)[(size_t)row * p.D + k])
-                    : static_cast<const float*>(p.emb)[(size_t)row * p.D + k];
-}
-
-template <int KIND>
-__device__ __forceinline__ float operand_at(const Params& p, const Operand& op, int r, int k) {
-  switch (KIND) {
-    case OP_INPUT: {
-      if (op.T == 2) {
-        const int b = r >> 1;
-        return (r & 1) ? emb_at(p, __ldcg(p.samples + b * p.N), k) : __ldg(p.x0 + (size_t)b * p.D + k);
-      }
-      return emb_at(p, __ldcg(p.samples + r * p.N + op.pass) + op.pass * p.Va, k);
-    }
-    case OP_RES:
-      return __ldcg(op.h_src + (size_t)r * p.D + k) +
-             split8(op.part, op.ks, op.Rp, p.D, r, k) * __ldg(op.s + k);
-    case OP_ATTN:
-      return __ldcg(p.attn + (size_t)r * p.nq * p.hd + k);
-    case OP_SWIGLU:
-      return swiglu8(op.part, op.ks, op.R, p.F, r, k, op.s, op.rsv[r]);
-    default: {
-      const int rr = r * op.T + op.T - 1;
-      return (__ldcg(op.h_src + (size_t)rr * p.D + k) +
-              split8(op.part, op.ks, op.Rp, p.D, rr, k) * __ldg(op.s + k)) * op.rsv[r];
-    }
+// Input tile cti of pass p: x0 (p = 0), else the embedding row of the code
+// drawn at p-1 (offset by its codebook); the residual, its bf16 operand and
+// the tile's sums of squares.
+__device__ void fd_init(const FdParams& p, const FdItem& it, uint8_t* work, int* closed,
+                        unsigned long long* tready) {
+  const FdShape& s = p.s;
+  const int cti = it.idx, c = threadIdx.x % COLS, r0 = threadIdx.x / COLS, n = cti * COLS + c;
+  float* ct = reinterpret_cast<float*>(work + FD_X_BYTES);
+  csync();  // the previous item's readers of the work area are done
+  bool w = false;
+  if (it.pass > 0) {
+    w = wait_flags(p.f_draw + (size_t)(it.pass - 1) * s.B, s.B, p.epoch);
+    w |= wait_flags(f_layer(p.f_dn, s, it.pass - 1, s.L - 1, s.td) + cti, 1, p.epoch);
   }
+  waits_done(w, closed);
+  mark(p.bb, tready, 0);
+  // The rows' embedding rows (codes first), every load of a thread in flight.
+  int* rowi = reinterpret_cast<int*>(work);
+  if (threadIdx.x < s.B)
+    rowi[threadIdx.x] = it.pass == 0 ? 0
+                                     : __ldcg(p.samples + threadIdx.x * s.N + it.pass - 1) +
+                                           (it.pass - 1) * s.Va;
+  csync();
+  float v[RPT];
+#pragma unroll
+  for (int e = 0; e < RPT; ++e) {
+    const int r = r0 + 2 * e;
+    v[e] = r >= s.B      ? 0.f
+         : it.pass == 0 ? __ldg(p.x0 + (size_t)r * s.D + n)
+                        : emb_at(p, (size_t)rowi[r], n);
+  }
+#pragma unroll
+  for (int e = 0; e < RPT; ++e)
+    if (r0 + 2 * e < s.B) ct[(r0 + 2 * e) * CT_STRIDE + c] = v[e];
+  csync();
+  residual_out<false>(p.bb, cti, ct, p.xa, false, 1.f, p.ss_a);
+  signal(p.f_init + (size_t)it.pass * s.td + cti, p.epoch);
 }
 
-// Rows [0, R) x K indices [k0, k0 + W) of the operand into X (bf16, row
-// stride XS); with h_dst, the f32 values into the residual.  Rows of X past
-// R are left as they are: they meet only output columns that are never
-// written.  Each thread computes SB elements before it stores any, so their
-// loads are in flight together.
-template <int KIND>
-__device__ void stage_x(const Params& p, const Operand& op, float* h_dst, int k0, int W, int XS,
-                        bf16* X) {
-  constexpr int SB = 4;
-  const int n = op.R * W;
-  __syncthreads();  // the last chunk's readers of X are done
-  for (int i0 = threadIdx.x; i0 < n; i0 += SB * NT) {
-    float v[SB];
+// Final norm of tile cti: the head's operand h rs (bf16, or f32 for the f32
+// head), rs over the whole row.
+__device__ void fd_final(const FdParams& p, const FdItem& it, uint8_t* work, float* rsv,
+                         int* closed, unsigned long long* tready) {
+  const FdShape& s = p.s;
+  const int cti = it.idx, c = threadIdx.x % COLS, r0 = threadIdx.x / COLS, n = cti * COLS + c;
+  csync();
+  waits_done(wait_flags(f_layer(p.f_dn, s, it.pass, s.L - 1, s.td), s.td, p.epoch), closed);
+  mark(p.bb, tready, 0);
+  float* ssm = reinterpret_cast<float*>(work);
+  for (int i = threadIdx.x; i < s.B * s.td; i += NT) ssm[i] = __ldcg(p.ss_a + i);
+  csync();
+  float hv[RPT];
 #pragma unroll
-    for (int u = 0; u < SB; ++u) {
-      const int i = i0 + u * NT;
-      v[u] = i < n ? operand_at<KIND>(p, op, i / W, k0 + i % W) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < SB; ++u) {
-      const int i = i0 + u * NT;
-      if (i >= n) break;
-      const int r = i / W, c = i % W;
-      if (h_dst != nullptr) h_dst[(size_t)r * p.D + k0 + c] = v[u];
-      X[r * XS + c] = __float2bfloat16_rn(v[u]);
-    }
+  for (int e = 0; e < RPT; ++e) {
+    const int r = r0 + 2 * e;
+    hv[e] = r < s.B ? __ldcg(p.bb.h + (size_t)r * s.D + n) : 0.f;
   }
+  row_scales(p.bb, ssm, rsv);
+#pragma unroll
+  for (int e = 0; e < RPT; ++e) {
+    const int r = r0 + 2 * e;
+    if (r >= s.B) continue;
+    const float v = hv[e] * rsv[r];
+    if (s.head_kind == 2) p.xhf[(size_t)r * s.D + n] = v;
+    else p.xh[(size_t)r * s.D + n] = __float2bfloat16_rn(v);
+  }
+  signal(p.f_fin + (size_t)it.pass * s.td + cti, p.epoch);
 }
 
-__device__ void stage_any(const Params& p, const Operand& op, float* h_dst, int k0, int W, int XS,
-                          bf16* X) {
-  switch (op.kind) {
-    case OP_INPUT: stage_x<OP_INPUT>(p, op, h_dst, k0, W, XS, X); break;
-    case OP_RES: stage_x<OP_RES>(p, op, h_dst, k0, W, XS, X); break;
-    case OP_ATTN: stage_x<OP_ATTN>(p, op, h_dst, k0, W, XS, X); break;
-    case OP_SWIGLU: stage_x<OP_SWIGLU>(p, op, h_dst, k0, W, XS, X); break;
-    default: stage_x<OP_HEAD>(p, op, h_dst, k0, W, XS, X); break;
-  }
-}
+// ---------------------------------------------------------------------------
+// Products
+// ---------------------------------------------------------------------------
 
-// The A fragment of k16 slice s for this warp's 16 columns: weights W[k][n]
-// widened to bf16, column m = g <-> tile column 16 warp + 2g, m = g + 8 <->
-// 16 warp + 2g + 1; the k slots 2t, 2t+1, 2t+8, 2t+9 <-> rows 16s + 4t + 0..3
-// (the activations' B fragment is then one 8-byte load of 4 adjacent k).
-template <int WK>
-__device__ __forceinline__ void load_a(const uint8_t* w, int s, int warp, int g, int t,
-                                       uint32_t (&a)[4]) {
-  uint32_t v[4];
-  if constexpr (WK == 0) {
-    const int off = ((warp ^ (2 * t)) * 16) + 2 * g;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      v[i] = *reinterpret_cast<const uint16_t*>(w + (16 * s + 4 * t + i) * COLS + off);
-    auto lo = [](uint32_t x) { return (float)(int8_t)(x & 0xff); };
-    auto hi = [](uint32_t x) { return (float)(int8_t)(x >> 8); };
-    a[0] = pack_bf16(lo(v[0]), lo(v[1]));
-    a[1] = pack_bf16(hi(v[0]), hi(v[1]));
-    a[2] = pack_bf16(lo(v[2]), lo(v[3]));
-    a[3] = pack_bf16(hi(v[2]), hi(v[3]));
-  } else {
-    const int off = (((2 * warp + (g >> 2)) ^ (2 * t)) * 16) + 4 * (g & 3);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      v[i] = *reinterpret_cast<const uint32_t*>(w + (16 * s + 4 * t + i) * 2 * COLS + off);
-    a[0] = __byte_perm(v[0], v[1], 0x5410);
-    a[1] = __byte_perm(v[0], v[1], 0x7632);
-    a[2] = __byte_perm(v[2], v[3], 0x5410);
-    a[3] = __byte_perm(v[2], v[3], 0x7632);
-  }
-}
-
-// Per-row sums of squares of the residual slice this item wrote, in a fixed
-// order (lanes along K, then the warp's butterfly).
-__device__ void slice_ss(const Params& p, const Operand& op, int k0, int kc, int ks) {
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < op.R; r += NWARP) {
-    float s = 0.f;
-#pragma unroll 8
-    for (int k = lane; k < kc; k += 32) {
-      const float v = __ldcg(op.h_dst + (size_t)r * p.D + k0 + k);
-      s = fmaf(v, v, s);
-    }
-    s = warp_sum(s);
-    if (lane == 0) op.ss[ks * op.R + r] = s;
-  }
-}
-
-// One work item on the tensor cores: part[ks, r, n] = sum over split ks of
-// x[r, k] W[k, n] for the tile's 128 columns, NRB blocks of 8 rows.
-template <int NRB, int WK>
-__device__ void mma_item(const Params& p, Ring& ring, const Prod& q, int it, const Operand& op,
-                         bf16* X) {
-  const int ct = it % q.tiles, ks = it / q.tiles;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  // Chunks whose operand rows are staged together: as many as X holds.
-  const int gch = max(1, min(q.nch, (X_BYTES / (2 * 8 * NRB) - 8) / q.CR));
-  const int XS = gch * q.CR + 8;
-  float* h_dst = ct == 0 ? op.h_dst : nullptr;
-  float acc[NRB][4];
-#pragma unroll
-  for (int rb = 0; rb < NRB; ++rb)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[rb][c] = 0.f;
-  for (int ch0 = 0; ch0 < q.nch; ch0 += gch) {
-    const int nj = min(gch, q.nch - ch0);
-    stage_any(p, op, h_dst, ks * q.kc + ch0 * q.CR, nj * q.CR, XS, X);
-    for (int j = 0; j < nj; ++j) {
-      const uint8_t* w = front(p, ring);
-      const bf16* xj = X + j * q.CR;
-#pragma unroll 4
-      for (int s = 0; s < q.CR / 16; ++s) {
-        uint32_t a[4];
-        load_a<WK>(w, s, warp, g, t, a);
-#pragma unroll
-        for (int rb = 0; rb < NRB; ++rb) {
-          const uint2 x =
-              *reinterpret_cast<const uint2*>(xj + (rb * 8 + g) * XS + 16 * s + 4 * t);
-          mma16816(acc[rb], a, x.x, x.y);
-        }
-      }
-      pop(ring);
-    }
-  }
-  const int n0 = ct * COLS + 16 * warp + 2 * g;
-#pragma unroll
-  for (int rb = 0; rb < NRB; ++rb) {
-    const int r0 = rb * 8 + 2 * t;
-    if (r0 < op.R)
-      *reinterpret_cast<float2*>(q.part + ((size_t)ks * op.R + r0) * q.N + n0) =
-          make_float2(acc[rb][0], acc[rb][2]);
-    if (r0 + 1 < op.R)
-      *reinterpret_cast<float2*>(q.part + ((size_t)ks * op.R + r0 + 1) * q.N + n0) =
-          make_float2(acc[rb][1], acc[rb][3]);
-  }
-  if (h_dst != nullptr) slice_ss(p, op, ks * q.kc, q.kc, ks);
-}
-
-// The f32 head's work item (CUDA cores): a thread per column, the split's
-// f32 operand rows staged whole, W read directly.
-__device__ void f32_item(const Params& p, const Prod& q, int it, const Operand& op, float* Xf) {
-  const int ct = it % q.tiles, ks = it / q.tiles;
-  __syncthreads();
-  for (int i = threadIdx.x; i < op.R * q.kc; i += NT)
-    Xf[i] = operand_at<OP_HEAD>(p, op, i / q.kc, ks * q.kc + i % q.kc);
-  __syncthreads();
+// The f32 head's sums (CUDA cores): a thread per column, the split's f32
+// operand rows staged whole, W read directly.
+__device__ void f32_sums(const FdParams& p, const Prod& q, int idx, float* Xf, float* ct) {
+  const FdShape& s = p.s;
+  const int cti = idx % q.tiles, ks = idx / q.tiles;
+  csync();
+  for (int i = threadIdx.x; i < s.B * q.kc; i += NT)
+    Xf[i] = __ldcg(p.xhf + (size_t)(i / q.kc) * s.D + ks * q.kc + i % q.kc);
+  csync();
   if (threadIdx.x < COLS) {
-    const int col = ct * COLS + threadIdx.x;
-    const float* W = reinterpret_cast<const float*>(q.W) + (size_t)ks * q.kc * q.N + col;
-    for (int r = 0; r < op.R; ++r) {
+    const float* W = reinterpret_cast<const float*>(q.W) + (size_t)ks * q.kc * q.N + cti * COLS +
+                     threadIdx.x;
+    for (int r = 0; r < s.B; ++r) {
       float a = 0.f;
       for (int k = 0; k < q.kc; ++k) a = fmaf(Xf[r * q.kc + k], __ldg(W + (size_t)k * q.N), a);
-      q.part[((size_t)ks * op.R + r) * q.N + col] = a;
+      ct[r * CT_STRIDE + threadIdx.x] = a;
     }
   }
-  __syncthreads();
+  csync();
 }
 
-// Every item of stage st that falls to this block.
-__device__ void gemm_stage(const Params& p, Ring& ring, int st, int pass, const Operand& op,
-                           void* work) {
-  const Prod q = prod(p, st, pass);
-  const int nrb = (op.R + 7) / 8;
-  for (int it = blockIdx.x; it < q.items; it += gridDim.x) {
-    bf16* X = static_cast<bf16*>(work);
-    if (q.wkind == 2) f32_item(p, q, it, op, static_cast<float*>(work));
-    else if (q.wkind == 0) {
-      if (nrb <= 1) mma_item<1, 0>(p, ring, q, it, op, X);
-      else if (nrb <= 2) mma_item<2, 0>(p, ring, q, it, op, X);
-      else if (nrb <= 4) mma_item<4, 0>(p, ring, q, it, op, X);
-      else mma_item<8, 0>(p, ring, q, it, op, X);
-    } else {
-      if (nrb <= 1) mma_item<1, 1>(p, ring, q, it, op, X);
-      else if (nrb <= 2) mma_item<2, 1>(p, ring, q, it, op, X);
-      else mma_item<4, 1>(p, ring, q, it, op, X);  // the head: R = B <= 32
+// The epilogue of a finished tile (sums in ct), once per tile, with the tile
+// sums of squares in ssm and the residual tile in ht (combine); s0 / s1 the
+// thread's column scales, tmp free shared memory.
+__device__ void fd_epilogue(const FdParams& p, const FdItem& it, int cti, float* ct, float* rsv,
+                            const float* ssm, const float* ht, float s0, float s1, float* tmp) {
+  const FdShape& s = p.s;
+  const int B = s.B, l = it.l, pos = it.pass;
+  const int c = threadIdx.x % COLS, r0 = threadIdx.x / COLS, n = cti * COLS + c;
+  switch (it.kind) {
+    case K_QKV: {
+      const int half = s.hd / 2, kv0 = s.nqh, v0 = s.nqh + s.nkv * s.hd, d = n % s.hd;
+      float* cs = tmp;
+      float* sn = tmp + s.hd;
+      for (int i = threadIdx.x; i < s.hd; i += NT) {
+        cs[i] = __ldg(p.cosb + (size_t)pos * s.hd + i);
+        sn[i] = __ldg(p.sinb + (size_t)pos * s.hd + i);
+      }
+      row_scales(p.bb, ssm, rsv);  // synchronises the block
+      for (int r = r0; r < B; r += 2) ct[r * CT_STRIDE + c] = ct[r * CT_STRIDE + c] * s0 * rsv[r];
+      csync();
+      // K/V rows: [L, B, nkv, N, hd], row pos.
+      auto at = [&](int r, int kvh) {
+        return ((((size_t)l * B + r) * s.nkv + kvh) * s.N + pos) * s.hd + d;
+      };
+      if (n >= v0) {
+        for (int r = r0; r < B; r += 2)
+          p.vc[at(r, (n - v0) / s.hd)] = __float2bfloat16_rn(ct[r * CT_STRIDE + c]);
+        break;
+      }
+      const int pc = d < half ? c + half : c - half;
+      for (int r = r0; r < B; r += 2) {
+        const float x = ct[r * CT_STRIDE + c];
+        const float xr = d < half ? -ct[r * CT_STRIDE + pc] : ct[r * CT_STRIDE + pc];
+        const bf16 y = __float2bfloat16_rn(__fadd_rn(__fmul_rn(x, cs[d]), __fmul_rn(xr, sn[d])));
+        if (n < kv0) p.qb[(size_t)r * s.nqh + n] = y;
+        else p.kc[at(r, (n - kv0) / s.hd)] = y;
+      }
+      break;
     }
+    case K_O:
+    case K_DOWN:
+      for (int r = r0; r < B; r += 2)
+        ct[r * CT_STRIDE + c] = __fadd_rn(ht[r * CT_STRIDE + c], __fmul_rn(ct[r * CT_STRIDE + c], s0));
+      csync();
+      residual_out<false>(p.bb, cti, ct, it.kind == K_O ? p.xm : p.xa, false, 1.f,
+                          it.kind == K_O ? p.ss_m : p.ss_a);
+      break;
+    case K_GU: {
+      // Thread i: gate column j = i % 64 of the pair tile, rows i / 64 + 4e.
+      row_scales(p.bb, ssm, rsv);
+      const int j = threadIdx.x % 64, f = cti * 64 + j;
+      for (int r = threadIdx.x / 64; r < B; r += 4) {
+        const float gt = ct[r * CT_STRIDE + j] * s0 * rsv[r];
+        const float up = ct[r * CT_STRIDE + 64 + j] * s1 * rsv[r];
+        p.xd[(size_t)r * s.F + f] = __float2bfloat16_rn(gt * (1.f / (1.f + expf(-gt))) * up);
+      }
+      break;
+    }
+    default:  // K_HEAD: the bf16-rounded logits (int8: times the column's scale)
+      for (int r = r0; r < B; r += 2) {
+        const float a = ct[r * CT_STRIDE + c];
+        p.lg[(size_t)r * s.Va_pad + n] = bf16r(s.head_kind == 1 ? a * s0 : a);
+      }
+      break;
   }
+}
+
+__device__ void fd_product(const FdParams& p, Ring& ring, const FdItem& it, uint8_t* work,
+                           float* rsv, int* flag, int* closed, unsigned long long* tready) {
+  const FdShape& s = p.s;
+  const Prod q = fd_prod(p, it.kind, it.pass, it.l);
+  const int cti = it.idx % q.tiles, ks = it.idx / q.tiles, l = it.l;
+  const int c = threadIdx.x % COLS, n = cti * COLS + c;
+  // The column scales, loaded before the waits.
+  float s0 = 1.f, s1 = 1.f;
+  switch (it.kind) {
+    case K_QKV: s0 = __ldg(p.sqkv + (size_t)l * s.QKVN + n); break;
+    case K_O: s0 = __ldg(p.so + (size_t)l * s.D + n); break;
+    case K_DOWN: s0 = __ldg(p.sdown + (size_t)l * s.D + n); break;
+    case K_GU: {
+      const int f = cti * 64 + threadIdx.x % 64;
+      s0 = __ldg(p.sgu + (size_t)l * 2 * s.F + f);
+      s1 = __ldg(p.sgu + (size_t)l * 2 * s.F + s.F + f);
+      break;
+    }
+    default:
+      if (s.head_kind == 1) s0 = __ldg(p.head_scale + (size_t)(it.pass - 1) * s.Va_pad + n);
+      break;
+  }
+  // The flags of the operand's K range.
+  const int k0 = ks * q.kc, k1 = k0 + q.kc - 1;
+  bool w;
+  switch (it.kind) {
+    case K_QKV: {
+      const unsigned* f = l == 0 ? p.f_init + (size_t)it.pass * s.td
+                                 : f_layer(p.f_dn, s, it.pass, l - 1, s.td);
+      w = wait_flags(f + k0 / COLS, k1 / COLS - k0 / COLS + 1, p.epoch);
+      break;
+    }
+    case K_O: {
+      const int gw = s.G * s.hd, lo = k0 / gw, hi = k1 / gw;
+      w = wait_flags(f_layer(p.f_att, s, it.pass, l, s.nkv * s.B) + (size_t)lo * s.B,
+                     (hi - lo + 1) * s.B, p.epoch);
+      break;
+    }
+    case K_GU:
+      w = wait_flags(f_layer(p.f_o, s, it.pass, l, s.td) + k0 / COLS, k1 / COLS - k0 / COLS + 1,
+                     p.epoch);
+      break;
+    case K_DOWN:
+      w = wait_flags(f_layer(p.f_gu, s, it.pass, l, s.tg) + k0 / 64, k1 / 64 - k0 / 64 + 1, p.epoch);
+      break;
+    default:
+      w = wait_flags(p.f_fin + (size_t)it.pass * s.td + k0 / COLS, k1 / COLS - k0 / COLS + 1,
+                     p.epoch);
+      break;
+  }
+  waits_done(w, closed);
+  mark(p.bb, tready, 0);
+  bf16* X = reinterpret_cast<bf16*>(work);
+  float* ct = reinterpret_cast<float*>(work + FD_X_BYTES);
+  if (it.kind != K_HEAD) {
+    const bf16* x = it.kind == K_QKV ? p.xa : it.kind == K_O ? p.xo : it.kind == K_GU ? p.xm : p.xd;
+    run_mma<0, true, FD_X_BYTES>(p.bb, ring, q, it.idx, x, X, ct);
+  } else if (s.head_kind == 0) {
+    run_mma<2, true, FD_X_BYTES>(p.bb, ring, q, it.idx, p.xh, X, ct);
+  } else if (s.head_kind == 1) {
+    run_mma<0, true, FD_X_BYTES>(p.bb, ring, q, it.idx, p.xh, X, ct);
+  } else {
+    f32_sums(p, q, it.idx, reinterpret_cast<float*>(work), ct);
+  }
+  mark(p.bb, tready, 1);
+  // The staging area is free now: the tile sums of squares, then h's tile.
+  float* ssm = reinterpret_cast<float*>(work);
+  float* ht = ssm + SS_MAX;
+  const bool res = it.kind == K_O || it.kind == K_DOWN;
+  const float* ss = it.kind == K_QKV ? p.ss_a : it.kind == K_GU ? p.ss_m : nullptr;
+  if (!combine(p.bb, q, it.idx, ct, flag, ss, ssm, res ? p.bb.h : nullptr, ht)) return;
+  mark(p.bb, tready, 2);
+  fd_epilogue(p, it, cti, ct, rsv, ssm, ht, s0, s1, ht + B_MAX * CT_STRIDE);
+  mark(p.bb, tready, 3);
+  unsigned* done = it.kind == K_QKV  ? f_layer(p.f_qkv, s, it.pass, l, s.tq) + cti
+                 : it.kind == K_O    ? f_layer(p.f_o, s, it.pass, l, s.td) + cti
+                 : it.kind == K_GU   ? f_layer(p.f_gu, s, it.pass, l, s.tg) + cti
+                 : it.kind == K_DOWN ? f_layer(p.f_dn, s, it.pass, l, s.td) + cti
+                                     : p.f_head + (size_t)it.pass * s.th + cti;
+  signal(done, p.epoch);
 }
 
 // ---------------------------------------------------------------------------
 // Attention, the draw
 // ---------------------------------------------------------------------------
 
-// RoPE, the K/V write and attention of (stream b, query head hq) for T rows
-// at positions pos0.., layer l.  qkv comes as the fused product's split sums
-// times its scales and the rows' RMS scale (from the slices' sums of
-// squares).  The item of the group's first head writes the K/V scratch; every
-// item takes its own rows' keys from its registers of k and v and the
-// earlier positions from the scratch.
-__device__ void attention_item(const Params& p, int l, int b, int hq, int T, int pos0, int R,
-                               float* smem) {
-  const int hd = p.hd, G = p.nq / p.nkv, kvh = hq / G, half = hd / 2;
-  const int QKVN = (p.nq + 2 * p.nkv) * hd;
-  float* raw = smem;                // [T][3][hd]: q, k, v
-  float* rnd = raw + T * 3 * hd;    // [T][3][hd]: RoPE'd and bf16-rounded
-  float* sc = rnd + T * 3 * hd;     // [T][NP]
-  float* rs = sc + T * p.NP;        // [T]
-  float* kf = rs + 2;               // [pos0][hd]: the scratch's earlier keys
-  float* vf = kf + pos0 * hd;       // [pos0][hd]: and values
-  __syncthreads();
-  if (threadIdx.x < T) {
-    const int r = b * T + threadIdx.x;
-    rs[threadIdx.x] = __frsqrt_rn(split8(p.ss_a, p.ks_qkv, R, 1, r, 0) / (float)p.D + p.eps);
-  }
-  __syncthreads();
-  const float* sq = p.sqkv + (size_t)l * QKVN;
-  const size_t cache_row = (((size_t)l * p.B + b) * p.nkv + kvh) * p.NP;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < pos0 * hd; i += NT) {
-    kf[i] = __bfloat162float(p.kc[cache_row * hd + i]);
-    vf[i] = __bfloat162float(p.vc[cache_row * hd + i]);
-  }
-  for (int i = threadIdx.x; i < T * 3 * hd; i += NT) {
-    const int t = i / (3 * hd), w = i / hd % 3, d = i % hd;
-    const int col = w == 0 ? hq * hd + d : (p.nq + (w - 1) * p.nkv + kvh) * hd + d;
-    raw[i] = split8(p.p_qkv, p.ks_qkv, R, QKVN, b * T + t, col) * __ldg(sq + col) * rs[t];
-  }
-  __syncthreads();
-  const bool writer = hq % G == 0;
-  for (int i = threadIdx.x; i < T * 3 * hd; i += NT) {
-    const int t = i / (3 * hd), w = i / hd % 3, d = i % hd;
-    const float* x = raw + (t * 3 + w) * hd;
-    const size_t at = (cache_row + pos0 + t) * hd + d;
-    if (w == 2) {
-      rnd[i] = bf16r(x[d]);
-      if (writer) p.vc[at] = __float2bfloat16_rn(x[d]);
-      continue;
+// Attention of (kv head, stream b) at position pos over keys 0..pos: the
+// group's RoPE'd bf16 q rows, the K/V rows (bf16), f32 scores and softmax,
+// bf16 probabilities; the output, bf16-rounded, is o-proj's operand.
+__device__ void fd_attention(const FdParams& p, const FdItem& it, uint8_t* work, int* closed,
+                             unsigned long long* tready) {
+  const FdShape& s = p.s;
+  const int l = it.l, pos = it.pass, kvh = it.idx / s.B, b = it.idx % s.B;
+  const int G = s.G, hd = s.hd, n = pos + 1;
+  float* qf = reinterpret_cast<float*>(work);  // [G][hd]
+  float* kf = qf + G * hd;                      // [n][hd]
+  float* vf = kf + s.N * hd;                    // [n][hd]
+  float* sc = vf + s.N * hd;                    // [G][N]
+  const int q0 = kvh * G * hd, q1 = q0 + G * hd - 1;
+  const int kcol = s.nqh + kvh * hd, vcol = s.nqh + (s.nkv + kvh) * hd;
+  const unsigned* fq = f_layer(p.f_qkv, s, pos, l, s.tq);
+  csync();  // the previous item's readers of the work area are done
+  bool w = wait_flags(fq + q0 / COLS, q1 / COLS - q0 / COLS + 1, p.epoch);
+  w |= wait_flags(fq + kcol / COLS, 1, p.epoch);
+  w |= wait_flags(fq + vcol / COLS, 1, p.epoch);
+  waits_done(w, closed);
+  mark(p.bb, tready, 0);
+  // The K / V rows 0..pos and the group's q rows, 8 bf16 a load, a thread's
+  // loads in flight together.
+  {
+    constexpr int SB = 2;
+    const size_t row0 = (((size_t)l * s.B + b) * s.nkv + kvh) * s.N * hd;
+    const uint4* kg = reinterpret_cast<const uint4*>(p.kc + row0);
+    const uint4* vg = reinterpret_cast<const uint4*>(p.vc + row0);
+    const uint4* qg = reinterpret_cast<const uint4*>(p.qb + (size_t)b * s.nqh + q0);
+    const int nkv8 = n * hd / 8, nq8 = G * hd / 8;
+    auto put = [](float* dst, uint4 u) {
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dst[2 * k] = __uint_as_float(w[k] << 16);
+        dst[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+      }
+    };
+    for (int i0 = threadIdx.x; i0 < nkv8 + nq8; i0 += SB * NT) {
+      uint4 ku[SB], vu[SB];
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int i = i0 + u * NT;
+        if (i < nkv8) {
+          ku[u] = __ldcg(kg + i);
+          vu[u] = __ldcg(vg + i);
+        } else if (i < nkv8 + nq8) {
+          ku[u] = __ldcg(qg + (i - nkv8));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int i = i0 + u * NT;
+        if (i < nkv8) {
+          put(kf + 8 * i, ku[u]);
+          put(vf + 8 * i, vu[u]);
+        } else if (i < nkv8 + nq8) {
+          put(qf + 8 * (i - nkv8), ku[u]);
+        }
+      }
     }
-    const int pos = pos0 + t;
-    const float xr = d < half ? -x[d + half] : x[d - half];
-    const float y = __fadd_rn(__fmul_rn(x[d], __ldg(p.cosb + pos * hd + d)),
-                              __fmul_rn(xr, __ldg(p.sinb + pos * hd + d)));
-    rnd[i] = bf16r(y);
-    if (w == 1 && writer) p.kc[at] = __float2bfloat16_rn(y);
   }
-  __syncthreads();
-  // Scores: a warp per (row, key); keys below pos0 from the scratch (staged).
+  csync();
+  mark(p.bb, tready, 1);
+  // Scores: a warp per (head, key).
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nk = pos0 + T;
-  for (int w = warp; w < T * nk; w += NWARP) {
-    const int t = w / nk, j = w % nk;
-    if (j > pos0 + t) continue;
-    const float* q = rnd + t * 3 * hd;
-    float s = 0.f;
-    for (int d = lane; d < hd; d += 32) {
-      const float k = j >= pos0 ? rnd[((j - pos0) * 3 + 1) * hd + d] : kf[j * hd + d];
-      s = fmaf(q[d], k, s);
-    }
-    s = warp_sum(s);
-    if (lane == 0) sc[t * p.NP + j] = s * p.scale;
+  for (int wk = warp; wk < G * n; wk += NWARP) {
+    const int g = wk / n, j = wk % n;
+    float a = 0.f;
+    for (int d = lane; d < hd; d += 32) a = fmaf(qf[g * hd + d], kf[j * hd + d], a);
+    a = warp_sum(a);
+    if (lane == 0) sc[g * s.N + j] = a * p.scale;
   }
-  __syncthreads();
-  // Softmax over keys 0..pos0+t: a warp per row; bf16 probabilities.
-  for (int t = warp; t < T; t += NWARP) {
-    const int n = pos0 + t + 1;
-    float* sg = sc + t * p.NP;
+  csync();
+  // Softmax: a warp per head; bf16 probabilities.
+  for (int g = warp; g < G; g += NWARP) {
+    float* sg = sc + g * s.N;
     float m = -INFINITY;
     for (int j = lane; j < n; j += 32) m = fmaxf(m, sg[j]);
     m = warp_max(m);
@@ -614,19 +736,17 @@ __device__ void attention_item(const Params& p, int l, int b, int hq, int T, int
     sum = warp_sum(sum);
     for (int j = lane; j < n; j += 32) sg[j] = bf16r(sg[j] / sum);
   }
-  __syncthreads();
-  // P.V: a thread per (row, dim); the output rounds to bf16, the o-proj operand.
-  for (int i = threadIdx.x; i < T * hd; i += NT) {
-    const int t = i / hd, d = i % hd;
-    const float* pg = sc + t * p.NP;
+  csync();
+  mark(p.bb, tready, 2);
+  // P.V: a thread per (head, dim).
+  for (int i = threadIdx.x; i < G * hd; i += NT) {
+    const int g = i / hd, d = i % hd;
     float acc = 0.f;
-    for (int j = 0; j <= pos0 + t; ++j) {
-      const float v = j >= pos0 ? rnd[((j - pos0) * 3 + 2) * hd + d] : vf[j * hd + d];
-      acc = fmaf(pg[j], v, acc);
-    }
-    p.attn[(size_t)(b * T + t) * p.nq * hd + hq * hd + d] = bf16r(acc);
+    for (int j = 0; j < n; ++j) acc = fmaf(sc[g * s.N + j], vf[j * hd + d], acc);
+    p.xo[(size_t)b * s.nqh + q0 + i] = __float2bfloat16_rn(acc);
   }
-  __syncthreads();
+  mark(p.bb, tready, 3);
+  signal(f_layer(p.f_att, s, pos, l, s.nkv * s.B) + it.idx, p.epoch);
 }
 
 __device__ __forceinline__ unsigned order_key(float x) {
@@ -634,14 +754,16 @@ __device__ __forceinline__ unsigned order_key(float x) {
   return (u >> 31) ? ~u : (u | 0x80000000u);
 }
 
-// One draw from lg[0..Va) (shared memory): first-index argmax of the raw
-// logits (greedy), else of top-k(lg) / max(temp, 1e-6) + gumbel, the top k
-// kept with ties at the k-th value.  The k-th value is the k-th largest of
-// the order keys' 16 high bits (exact on bf16-rounded logits), found by a
-// radix select: two rounds of an 8-bit digit, each a 256-bin histogram in
-// shared memory and a scan of it from the top by one warp.
-__device__ int draw(const float* lg, int Va, const float* gum, float temp, int topk, bool greedy,
-                    int* hist, float* redf, int* redi) {
+// One draw from the logits of columns v = threadIdx.x + k NT, k < DRAW_VPT
+// (lv, this thread's; NEG_INF past Va) with their noise gv: first-index
+// argmax of the raw logits (greedy), else of top-k(lg) / max(temp, 1e-6) +
+// gumbel, the top k kept with ties at the k-th value.  The k-th value is the
+// k-th largest of the order keys' 16 high bits (exact on bf16-rounded
+// logits), found by a radix select: two rounds of an 8-bit digit, each a
+// 256-bin histogram in shared memory and a scan of it from the top by one
+// warp.
+__device__ __forceinline__ int draw(const float (&lv)[DRAW_VPT], const float (&gv)[DRAW_VPT], int Va, float temp,
+                    int topk, bool greedy, int* hist, float* redf, int* redi) {
   unsigned kth = 0u;
   const float t = fmaxf(temp, 1e-6f);
   if (!greedy) {
@@ -650,18 +772,20 @@ __device__ int draw(const float* lg, int Va, const float* gum, float temp, int t
     for (int round = 0; round < 2; ++round) {
       const int shift = round == 0 ? 24 : 16;
       for (int i = threadIdx.x; i < 256; i += NT) hist[i] = 0;
-      __syncthreads();
-      for (int v = threadIdx.x; v < Va; v += NT) {
-        const unsigned key = order_key(lg[v]);
-        if (round == 0 || (key >> 24) == prefix) atomicAdd(&hist[(key >> shift) & 0xff], 1);
+      csync();
+#pragma unroll
+      for (int k = 0; k < DRAW_VPT; ++k) {
+        const unsigned key = order_key(lv[k]);
+        if ((int)threadIdx.x + k * NT < Va && (round == 0 || (key >> 24) == prefix))
+          atomicAdd(&hist[(key >> shift) & 0xff], 1);
       }
-      __syncthreads();
+      csync();
       if (threadIdx.x < 32) {
         const int lane = threadIdx.x;
-        int s = 0;
+        int sl = 0;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) s += hist[8 * lane + i];
-        int S = s;  // keys in the bins of this lane and every lane above
+        for (int i = 0; i < 8; ++i) sl += hist[8 * lane + i];
+        int S = sl;  // keys in the bins of this lane and every lane above
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
           const int y = __shfl_down_sync(0xffffffffu, S, o);
@@ -669,7 +793,7 @@ __device__ int draw(const float* lg, int Va, const float* gum, float temp, int t
         }
         const unsigned mask = __ballot_sync(0xffffffffu, S >= need);
         if (lane == 31 - __clz(mask)) {
-          int cum = S - s;
+          int cum = S - sl;
           for (int bin = 8 * lane + 7; bin >= 8 * lane; --bin) {
             cum += hist[bin];
             if (cum >= need) {
@@ -680,18 +804,21 @@ __device__ int draw(const float* lg, int Va, const float* gum, float temp, int t
           }
         }
       }
-      __syncthreads();
+      csync();
       prefix = (prefix << 8) | (unsigned)redi[0];
       need -= redi[1];
-      __syncthreads();
+      csync();
     }
     kth = prefix << 16;
   }
   float best = -INFINITY;
   int bidx = 1 << 30;
-  for (int v = threadIdx.x; v < Va; v += NT) {
-    float val = lg[v];
-    if (!greedy) val = (order_key(val) >= kth ? val / t : NEG_INF) + __ldg(gum + v);
+#pragma unroll
+  for (int k = 0; k < DRAW_VPT; ++k) {
+    const int v = threadIdx.x + k * NT;
+    if (v >= Va) break;
+    float val = lv[k];
+    if (!greedy) val = (order_key(val) >= kth ? val / t : NEG_INF) + gv[k];
     if (val > best) { best = val; bidx = v; }
   }
 #pragma unroll
@@ -700,292 +827,262 @@ __device__ int draw(const float* lg, int Va, const float* gum, float temp, int t
     const int oi = __shfl_xor_sync(0xffffffffu, bidx, o);
     if (ov > best || (ov == best && oi < bidx)) { best = ov; bidx = oi; }
   }
-  __syncthreads();
+  csync();
   if (threadIdx.x % 32 == 0) { redf[threadIdx.x / 32] = best; redi[threadIdx.x / 32] = bidx; }
-  __syncthreads();
+  csync();
   best = redf[0];
   bidx = redi[0];
   for (int w = 1; w < NWARP; ++w)
     if (redf[w] > best || (redf[w] == best && redi[w] < bidx)) { best = redf[w]; bidx = redi[w]; }
-  __syncthreads();
+  csync();
   return bidx;
 }
 
-// Codebook i of stream b from its logits lg[Va_pad] (shared memory): record
-// logits and draw where asked, apply the forced token, store the sample.
-__device__ void sample_codebook(const Params& p, const float* lg, int b, int i, int* hist,
-                                float* redf, int* redi) {
-  if (p.out_logits != nullptr)
-    for (int v = threadIdx.x; v < p.Va_pad; v += NT)
-      p.out_logits[((size_t)i * p.B + b) * p.Va_pad + v] = lg[v];
-  const float* gum = p.gumbel + ((size_t)i * p.B + b) * p.Va;
-  const int d = draw(lg, p.Va, gum, p.temp[b], p.topk[b], p.greedy != 0, hist, redf, redi);
-  const int f = p.forced[b * p.N + i];
-  if (threadIdx.x == 0) {
-    if (p.out_draws != nullptr) p.out_draws[b * p.N + i] = d;
-    p.samples[b * p.N + i] = f >= 0 ? f : d;
+// The draw of codebook i (the item's pass) for stream b: its noise into
+// registers before the waits, then its logits (c0: the backbone's; else the
+// head tiles'), recorded where asked, drawn, the forced token applied, the
+// sample stored.
+__device__ void fd_draw(const FdParams& p, const FdItem& it, uint8_t* work, int* closed,
+                        unsigned long long* tready) {
+  const FdShape& s = p.s;
+  const int i = it.pass, b = it.idx;
+  int* hist = reinterpret_cast<int*>(work);
+  float* redf = reinterpret_cast<float*>(hist + 256);
+  int* redi = reinterpret_cast<int*>(redf + NWARP);
+  const float* gum = p.gumbel + ((size_t)i * s.B + b) * s.Va;
+  float gv[DRAW_VPT], lv[DRAW_VPT];
+#pragma unroll
+  for (int k = 0; k < DRAW_VPT; ++k) {
+    const int v = threadIdx.x + k * NT;
+    gv[k] = v < s.Va ? __ldg(gum + v) : 0.f;
   }
+  const float temp = __ldg(p.temp + b);
+  const int topk = __ldg(p.topk + b), f = __ldg(p.forced + b * s.N + i);
+  csync();
+  waits_done(i > 0 && wait_flags(p.f_head + (size_t)i * s.th, s.th, p.epoch), closed);
+  mark(p.bb, tready, 0);
+#pragma unroll
+  for (int k = 0; k < DRAW_VPT; ++k) {
+    const int v = threadIdx.x + k * NT;
+    lv[k] = v >= s.Va ? NEG_INF
+          : i == 0    ? __ldg(p.c0lg + (size_t)b * s.Va + v)
+                      : __ldcg(p.lg + (size_t)b * s.Va_pad + v);
+  }
+  if (p.out_logits != nullptr) {
+#pragma unroll
+    for (int k = 0; k < DRAW_VPT; ++k) {
+      const int v = threadIdx.x + k * NT;
+      if (v < s.Va_pad) p.out_logits[((size_t)i * s.B + b) * s.Va_pad + v] = lv[k];
+    }
+  }
+  const int d = draw(lv, gv, s.Va, temp, topk, p.greedy != 0, hist, redf, redi);
+  if (threadIdx.x == 0) {
+    if (p.out_draws != nullptr) p.out_draws[b * s.N + i] = d;
+    p.samples[b * s.N + i] = f >= 0 ? f : d;
+  }
+  signal(p.f_draw + (size_t)i * s.B + b, p.epoch);
 }
 
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
-constexpr int SMALL_FLOATS = 2 * NWARP + 256 + 64;  // redf, redi, hist, rsv
+__device__ __forceinline__ void block_sync_all() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(BLOCK) : "memory");
+}
 
-__global__ void __launch_bounds__(NT, 1) fused_decoder_kernel(const Params p) {
+__global__ void __launch_bounds__(BLOCK, 1) fused_decoder_kernel(const FdParams p) {
   extern __shared__ __align__(128) uint8_t smem_raw[];
-  float* redf = reinterpret_cast<float*>(smem_raw + RING * CHUNK_BYTES);
-  int* redi = reinterpret_cast<int*>(redf + NWARP);
-  int* hist = redi + NWARP;
-  float* rsv = reinterpret_cast<float*>(hist + 256);
-  float* work = rsv + 64;
-  const int nb = gridDim.x, bid = blockIdx.x;
-  const int D = p.D, L = p.L;
-
-  Ring ring{smem_raw, 0, 0, 0, 0, bid, 0};
-  settle(p, ring);
-  top_up(p, ring);  // the first stages' weights stream during c0's draws
-  // The trace: block 0's clock (ns) at its start and as it leaves each grid
-  // barrier, so stamp n - stamp n-1 is the stage that ends at barrier n.
-  int n_sync = 0;
-  const bool trace = p.stamps != nullptr && bid == 0 && threadIdx.x == 0;
+  uint8_t* work = smem_raw + (size_t)RING * CHUNK_BYTES;
+  float* rsv = reinterpret_cast<float*>(work + p.work);
+  int* flag = reinterpret_cast<int*>(rsv + B_MAX);
+  int* closed = flag + 1;  // two words: items alternate
+  unsigned* slot_waits = reinterpret_cast<unsigned*>(closed + 2);
+  unsigned long long* tready = reinterpret_cast<unsigned long long*>(rsv + 64);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rsv + 128);
+  uint64_t* empty = full + RING_MAX;
+  Plan* plan = reinterpret_cast<Plan*>(reinterpret_cast<uint8_t*>(rsv) + SMALL_BYTES);
+  const FdSched sc = fd_sched(p.s);
+  const int L = p.s.L;
+  const int n_mine = (sc.total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const bool trace = p.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  const int n_stages = fd_stage_count(p.s.N, L);
+  int stage = 0;
   if (trace) p.stamps[0] = globaltimer();
-  auto sync = [&] {
-    grid_sync(p.bar);
-    ++n_sync;
-    if (trace) p.stamps[n_sync] = globaltimer();
-  };
-  if (bid == 0 && threadIdx.x == 0) atomicExch(p.bar + 2, 0u);
-
-  // c0 from the backbone's logits.
-  for (int b = bid; b < p.B; b += nb) {
-    for (int v = threadIdx.x; v < p.Va_pad; v += NT)
-      work[v] = v < p.Va ? p.c0lg[(size_t)b * p.Va + v] : NEG_INF;
-    __syncthreads();
-    sample_codebook(p, work, b, 0, hist, redf, redi);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RING; ++i) {
+      hopper::mbar_init(full + i, PROD);
+      hopper::mbar_init(empty + i, NWARP);
+    }
+    hopper::fence_barrier_init();
+    closed[0] = closed[1] = 0;
   }
-  sync();
-
-  const Prod head = prod(p, 4 * L, 0);
-  for (int i = 0; i + 1 < p.N; ++i) {
-    const int T = i == 0 ? 2 : 1, pos0 = i == 0 ? 0 : i + 1, R = p.B * T;
-    for (int l = 0; l < L; ++l) {
-      // QKV on h_in = the pass's input (layer 0) or h_mid + down's split sums.
-      Operand op{};
-      op.R = op.Rp = R;
-      op.T = T;
-      op.pass = i;
-      op.h_dst = p.ha;
-      op.ss = p.ss_a;
-      if (l == 0) {
-        op.kind = OP_INPUT;
-      } else {
-        op.kind = OP_RES;
-        op.h_src = p.hm;
-        op.part = p.p_down;
-        op.ks = p.ks_down;
-        op.s = p.sdown + (size_t)(l - 1) * D;
-      }
-      gemm_stage(p, ring, 4 * l, i, op, work);
-      sync();
-      for (int it = bid; it < p.B * p.nq; it += nb)
-        attention_item(p, l, it / p.nq, it % p.nq, T, pos0, R, work);
-      sync();
-      // o-proj on the attention output.
-      op = Operand{};
-      op.kind = OP_ATTN;
-      op.R = op.Rp = R;
-      gemm_stage(p, ring, 4 * l + 1, i, op, work);
-      sync();
-      // gate-up on h_mid = h_in + o-proj's split sums.
-      op = Operand{};
-      op.kind = OP_RES;
-      op.R = op.Rp = R;
-      op.h_src = p.ha;
-      op.part = p.p_o;
-      op.ks = p.ks_o;
-      op.s = p.so + (size_t)l * D;
-      op.h_dst = p.hm;
-      op.ss = p.ss_m;
-      gemm_stage(p, ring, 4 * l + 2, i, op, work);
-      sync();
-      // down on SwiGLU of gate-up's split sums, h_mid's RMS scale.
-      op = Operand{};
-      op.kind = OP_SWIGLU;
-      op.R = op.Rp = R;
-      op.part = p.p_gu;
-      op.ks = p.ks_gu;
-      op.s = p.sgu + (size_t)l * 2 * p.F;
-      op.rsv = rsv;
-      if (bid < prod(p, 4 * l + 3, i).items) {
-        for (int r = threadIdx.x; r < R; r += NT) {
-          rsv[r] = __frsqrt_rn(split8(p.ss_m, p.ks_gu, R, 1, r, 0) / (float)D + p.eps);
-        }
-        __syncthreads();
-      }
-      gemm_stage(p, ring, 4 * l + 3, i, op, work);
-      sync();
-    }
-
-    // The head on each stream's last row of h_out = h_mid + down's split
-    // sums, final-normed (the norm weight is folded into the head).
-    Operand op{};
-    op.kind = OP_HEAD;
-    op.R = p.B;
-    op.Rp = R;
-    op.T = T;
-    op.h_src = p.hm;
-    op.part = p.p_down;
-    op.ks = p.ks_down;
-    op.s = p.sdown + (size_t)(L - 1) * D;
-    op.rsv = rsv;
-    if (bid < head.items) {
-      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-      for (int b = warp; b < p.B; b += NWARP) {
-        const int rr = b * T + T - 1;
-        float ss = 0.f;
-#pragma unroll 8
-        for (int k = lane; k < D; k += 32) {
-          const float v = __ldcg(p.hm + (size_t)rr * D + k) +
-                          split8(p.p_down, p.ks_down, R, D, rr, k) * __ldg(op.s + k);
-          ss = fmaf(v, v, ss);
-        }
-        ss = warp_sum(ss);
-        if (lane == 0) rsv[b] = __frsqrt_rn(ss / (float)D + p.eps);
-      }
-      __syncthreads();
-      gemm_stage(p, ring, 4 * L, i, op, work);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        __threadfence();
-        add_release(p.bar + 2, (unsigned)((head.items - 1 - bid) / nb + 1));
-      }
-    }
-    // Codebook i + 1: each stream's draw waits for every head item.
-    const float* hs = p.head_scale + (size_t)i * p.Va_pad;
-    for (int b = bid; b < p.B; b += nb) {
-      wait_count(p.bar + 2, (unsigned)((i + 1) * head.items));
-      for (int v = threadIdx.x; v < p.Va_pad; v += NT) {
-        float a = split8(p.p_head, p.ks_head, p.B, p.Va_pad, b, v);
-        if (p.head_kind == 1) a *= __ldg(hs + v);
-        work[v] = v < p.Va ? bf16r(a) : NEG_INF;
-      }
-      __syncthreads();
-      sample_codebook(p, work, b, i + 1, hist, redf, redi);
-    }
-    if (i + 2 < p.N) sync();  // the next pass reads the draws
+  fd_build_plan(p, sc, plan, n_mine);  // ends with a barrier of the whole block
+  if (threadIdx.x >= NT) {
+    const unsigned waits = produce<0, true>(p.bb, plan, n_mine, smem_raw, full, empty);
+    if (threadIdx.x == NT) *slot_waits = waits;
+    block_sync_all();
+    return;
   }
-  if (bid == 0 && threadIdx.x == 0) p.bar[3] = (unsigned)n_sync;
+
+  Ring ring{smem_raw, full, empty, RING, 0};
+  unsigned n_closed = 0;
+  for (int i = 0; i < n_mine; ++i) {
+    const int g = blockIdx.x + i * gridDim.x;
+    const FdItem it = fd_item_at(sc, L, g);
+    const int st = fd_stage_of(it, L);
+    if (trace) {
+      const unsigned long long now = globaltimer();
+      for (; stage < st; ++stage) p.stamps[stage + 1] = now;
+    }
+    unsigned long long t_begin = 0;
+    if (p.bb.item_ns != nullptr && threadIdx.x == 0) {
+      for (int k = 0; k < TRACE_MARKS; ++k) tready[k] = 0;
+      tready[0] = t_begin = globaltimer();  // an item without waits ends them at once
+    }
+    int* cl = closed + (i & 1);
+    switch (it.kind) {
+      case K_DRAW: fd_draw(p, it, work, cl, tready); break;
+      case K_INIT: fd_init(p, it, work, cl, tready); break;
+      case K_FINAL: fd_final(p, it, work, rsv, cl, tready); break;
+      case K_ATT: fd_attention(p, it, work, cl, tready); break;
+      default: fd_product(p, ring, it, work, rsv, flag, cl, tready); break;
+    }
+    if (threadIdx.x == 0) {
+      // Every thread's mark is in: the item synchronised the block past its waits.
+      if (*cl) {
+        ++n_closed;
+        *cl = 0;
+      }
+      if (p.bb.item_ns != nullptr) {
+        unsigned long long* o = p.bb.item_ns + (size_t)TRACE_SLOTS * g;
+        o[0] = st;
+        o[1] = t_begin;
+        for (int k = 0; k < TRACE_MARKS; ++k) o[k + 2] = tready[k];
+        o[TRACE_SLOTS - 1] = globaltimer();
+      }
+    }
+  }
+  if (trace) {
+    const unsigned long long now = globaltimer();
+    for (; stage < n_stages; ++stage) p.stamps[stage + 1] = now;
+  }
+  block_sync_all();  // the producer's count is in
+  if (threadIdx.x == 0) {
+    // This launch's sums in sync[0, 4); the last block to finish moves them to
+    // sync[4, 8) and re-arms them and its ticket (sync[8]).  Word 0 counts
+    // grid barriers: the kernel has none.
+    unsigned* sy = p.sync;
+    atomicAdd(sy + 1, (unsigned)n_mine);
+    atomicAdd(sy + 2, n_closed);
+    atomicAdd(sy + 3, *slot_waits);
+    __threadfence();
+    if (add_acq_rel(sy + 8, 1u) == gridDim.x - 1) {
+      for (int k = 0; k < SYNC_OUT; ++k) sy[SYNC_OUT + k] = atomicExch(sy + k, 0u);
+      atomicExch(sy + 8, 0u);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Host
 // ---------------------------------------------------------------------------
 
-struct Splits {
-  int qkv, o, gu, down, head;
-};
-
-Splits splits(int D, int QKVN, int nqh, int F, int Va_pad) {
-  return Splits{pick_ks(D, QKVN), pick_ks(nqh, D), pick_ks(D, 2 * F), pick_ks(F, D),
-                pick_ks(D, Va_pad)};
+// Whether the kernel takes these shapes: B <= 32 (four 8-row blocks an
+// operand), N <= NP_MAX positions, GQA groups of at most 8, heads that tile
+// 128 columns, whole 128-column tiles (64-column gate-up pairs), whole
+// weight chunks in every split, and a work area that holds attention, the
+// draw and the f32 head's staged rows.
+bool fd_shapes_ok(const FdShape& s) {
+  if (s.B < 1 || s.B > B_MAX || s.N < 2 || s.N > NP_MAX || s.L < 1 || s.nkv <= 0 ||
+      s.nq % s.nkv != 0 || s.G > G_MAX || s.hd < 16 || s.hd > HD_MAX || COLS % s.hd != 0 ||
+      s.head_kind < 0 || s.head_kind >= HEAD_KINDS || s.Va < 1 || s.Va > s.Va_pad ||
+      s.Va_pad > DRAW_VPT * NT)
+    return false;
+  if (s.D % COLS != 0 || s.Va_pad % COLS != 0 || s.QKVN % COLS != 0 || s.F % COLS != 0 ||
+      s.nqh % CHUNK_ROWS != 0 || s.D % CHUNK_ROWS != 0 || s.B * s.td > SS_MAX)
+    return false;
+  return s.head_kind != 2 || s.B * (s.D / s.ksh) * 4 <= FD_X_BYTES;
 }
 
-Layout layout_of(int B, int D, int QKVN, int nqh, int F, int Va_pad) {
-  const Splits k = splits(D, QKVN, nqh, F, Va_pad);
-  return layout(B, D, QKVN, nqh, F, Va_pad, k.qkv, k.o, k.gu, k.down, k.head);
-}
-
-// Whether every product's K split streams in whole chunks (and, for the f32
-// head, fits the staging area).
-bool shapes_ok(int D, int QKVN, int nqh, int F, int Va_pad, int head_kind) {
-  const Splits k = splits(D, QKVN, nqh, F, Va_pad);
-  const int Ks[5] = {D, nqh, D, F, D}, KS[5] = {k.qkv, k.o, k.gu, k.down, k.head};
-  const int Ns[5] = {QKVN, D, 2 * F, D, Va_pad};
-  const int hw = head_kind == 0 ? 1 : head_kind == 1 ? 0 : 2;
-  for (int i = 0; i < 5; ++i) {
-    const int wk = i == 4 ? hw : 0;
-    if (Ks[i] % 16 != 0 || Ns[i] % COLS != 0 || Ks[i] % (16 * KS[i]) != 0) return false;
-    const int kc = Ks[i] / KS[i];
-    if (wk != 2 && kc % chunk_rows(kc, wk) != 0) return false;
-  }
-  return true;
-}
-
-size_t smem_bytes(int D, int Va_pad, int hd, int NP, int head_kind) {
-  const size_t x = X_BYTES;
-  const size_t att = (2 * 2 * 3 * hd + 2 * NP + 2 + 2 * (size_t)NP * hd) * sizeof(float);
-  const size_t lg = (size_t)Va_pad * sizeof(float);
-  const size_t f32 = head_kind == 2 ? 32 * (size_t)(D / pick_ks(D, Va_pad)) * sizeof(float) : 0;
-  size_t w = x > att ? x : att;
-  w = w > lg ? w : lg;
-  w = w > f32 ? w : f32;
-  return RING * CHUNK_BYTES + SMALL_FLOATS * sizeof(float) + w;
-}
-
-// Blocks of the cooperative grid: one per SM (the ring and the staged
-// operand take most of its shared memory; 255 registers a thread leave the
-// products unspilled), all resident.
-cudaError_t grid_blocks(size_t smem, int* out) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(fused_decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_decoder_kernel, NT, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *out = sms;
-  return cudaSuccess;
+// Shared memory of a block: the ring, the work area, the small arrays, the
+// plan of its items.
+size_t fd_smem(const FdShape& s, int grid) {
+  const int per_block = (fd_sched(s).total + grid - 1) / grid;
+  return (size_t)RING * CHUNK_BYTES + fd_work_bytes(s) + SMALL_BYTES + per_block * sizeof(Plan);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the f32 scratch fused_decode takes at these shapes (Layout).
-long long fd_scratch_floats(int B, int D, int nq, int nkv, int hd, int F, int Va_pad) {
-  return layout_of(B, D, (nq + 2 * nkv) * hd, nq * hd, F, Va_pad).total;
+// Bytes of scratch a frame takes at these shapes (Layout; zeroed once when
+// allocated).
+long long fd_scratch_bytes(int B, int N, int D, int L, int nq, int nkv, int hd, int F, int Va,
+                           int Va_pad, int head_kind) {
+  const FdShape s = fd_shape(B, N, L, D, F, nq, nkv, hd, Va, Va_pad, head_kind);
+  if (!fd_shapes_ok(s)) return -(long long)REFUSED_SHAPES;
+  return fd_layout(s).total;
 }
 
-// One frame.  Shapes and types as in Params; every pointer on the current
-// device, contiguous; scratch holds scratch_floats floats (at least
-// fd_scratch_floats); bar holds 4 words, zeroed once when allocated (the
-// kernel re-arms them; bar[3] then holds the launch's count of grid
-// barriers); stamps, if not null, receives block 0's clock (ns, 64 bits) at
-// its start and as it leaves each grid barrier.  Launches one cooperative
-// kernel on ``stream``.
+// Work items of a frame at these shapes (an item trace takes TRACE_SLOTS,
+// 8, int64 per item).
+long long fd_item_count(int B, int N, int D, int L, int nq, int nkv, int hd, int F, int Va,
+                        int Va_pad, int head_kind) {
+  const FdShape s = fd_shape(B, N, L, D, F, nq, nkv, hd, Va, Va_pad, head_kind);
+  if (!fd_shapes_ok(s)) return -(long long)REFUSED_SHAPES;
+  return fd_sched(s).total;
+}
+
+// One frame.  Every pointer on the current device, contiguous.  f32: temp
+// [B], x0 [B,D], c0lg [B,Va] (bf16-rounded), scales sqkv [L,QKVN], so [L,D],
+// sgu [L,2F], sdown [L,D], cos / sin [>= N, hd], head_scale [N-1,Va_pad]
+// (int8 head), gumbel [N,B,Va], out_logits [N,B,Va_pad] or null; int32:
+// topk [B], forced [B,N], samples [B,N], out_draws [B,N] or null; int8 wqkv
+// [L,D,QKVN], wo [L,nq hd,D], wgu [L,D,2F], wdown [L,F,D]; head [N-1,D,Va_pad]
+// bf16, int8 or f32 (head_kind 0, 1, 2); emb [N Va, D] bf16 or f32.
+// scratch: fd_scratch_bytes bytes, zeroed when allocated, kept across calls
+// with ``epoch`` one more each launch (modulo 2^32); after a launch its int32
+// words 4..7 hold the launch's grid barriers (0), items, items whose waits
+// found a flag closed, and the producer's waits for a free ring slot (block
+// 0's warpgroup counts for each block).  stamps: null or fd_stage_count + 1
+// int64 (block 0's clock in ns at its start and as it leaves each stage of
+// the list); item_ns: null or item_ns_len int64, at least TRACE_SLOTS (8)
+// per work item (fd_item_count).  One cooperative launch on stream.  Returns
+// 0, a cudaError_t, or a code of arguments the kernel refuses.
 int fused_decode(const void* temp, const void* topk, const void* forced, const void* x0,
                  const void* c0lg, const void* wqkv, const void* wo, const void* wgu,
                  const void* wdown, const void* sqkv, const void* so, const void* sgu,
                  const void* sdown, const void* cosb, const void* sinb, const void* head,
                  const void* head_scale, const void* gumbel, const void* emb, void* samples,
-                 void* out_logits, void* out_draws, void* scratch, long long scratch_floats,
-                 void* kc, void* vc, void* bar, void* stamps, int B, int N, int Va, int Va_pad, int D, int L,
-                 int nq, int nkv, int hd, int F, int NP, int greedy, int head_kind, int emb_bf16,
-                 float eps, void* stream) {
-  const int QKVN = (nq + 2 * nkv) * hd, nqh = nq * hd;
-  if (B < 1 || B > 32 || N < 2 || nkv <= 0 || nq % nkv != 0 || nq / nkv > G_MAX ||
-      hd > HD_MAX || hd % 2 != 0 || NP < N || NP > NP_MAX || Va > Va_pad || head_kind < 0 ||
-      head_kind >= HEAD_KINDS || !shapes_ok(D, QKVN, nqh, F, Va_pad, head_kind))
-    return (int)cudaErrorInvalidValue;
-  const Layout lay = layout_of(B, D, QKVN, nqh, F, Va_pad);
-  if (lay.total > scratch_floats) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(D, Va_pad, hd, NP, head_kind);
-  int nb = 0;
-  cudaError_t e = grid_blocks(smem, &nb);
+                 void* out_logits, void* out_draws, void* scratch, void* stamps, void* item_ns,
+                 long long scratch_bytes, long long item_ns_len, int B, int N, int Va, int Va_pad,
+                 int D, int L, int nq, int nkv, int hd, int F, int greedy, int head_kind,
+                 int emb_bf16, int epoch, float eps, void* stream) {
+  const FdShape s = fd_shape(B, N, L, D, F, nq, nkv, hd, Va, Va_pad, head_kind);
+  if (!fd_shapes_ok(s)) return REFUSED_SHAPES;
+  const FdLayout lay = fd_layout(s);
+  if (lay.total > scratch_bytes) return REFUSED_BUFFER;
+  if (item_ns != nullptr && item_ns_len < (long long)TRACE_SLOTS * fd_sched(s).total)
+    return REFUSED_BUFFER;
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  const Splits k = splits(D, QKVN, nqh, F, Va_pad);
-  Params p;
-  p.B = B; p.N = N; p.Va = Va; p.Va_pad = Va_pad; p.D = D; p.L = L; p.nq = nq; p.nkv = nkv;
-  p.hd = hd; p.F = F; p.NP = NP; p.greedy = greedy; p.head_kind = head_kind;
+  const size_t smem = fd_smem(s, sms);
+  if (smem > (size_t)SMEM_MAX) return REFUSED_SMEM;
+  FdParams p{};
+  p.bb.s.B = B;
+  p.bb.s.D = D;
+  p.bb.s.td = s.td;
+  p.bb.ring = RING;
+  p.bb.eps = eps;
+  p.bb.item_ns = static_cast<unsigned long long*>(item_ns);
+  p.s = s;
+  p.epoch = (unsigned)epoch;
+  p.work = fd_work_bytes(s);
+  p.greedy = greedy;
   p.emb_bf16 = emb_bf16;
-  p.ks_qkv = k.qkv; p.ks_o = k.o; p.ks_gu = k.gu; p.ks_down = k.down; p.ks_head = k.head;
-  p.eps = eps; p.scale = (float)(1.0 / sqrt((double)hd));
+  p.scale = (float)(1.0 / sqrt((double)hd));
   p.temp = static_cast<const float*>(temp);
   p.topk = static_cast<const int*>(topk);
   p.forced = static_cast<const int*>(forced);
@@ -1008,23 +1105,37 @@ int fused_decode(const void* temp, const void* topk, const void* forced, const v
   p.samples = static_cast<int*>(samples);
   p.out_logits = static_cast<float*>(out_logits);
   p.out_draws = static_cast<int*>(out_draws);
-  float* s = static_cast<float*>(scratch);
-  p.ha = s + lay.ha; p.hm = s + lay.hm; p.attn = s + lay.attn; p.p_qkv = s + lay.p_qkv;
-  p.p_o = s + lay.p_o; p.p_gu = s + lay.p_gu; p.p_down = s + lay.p_down;
-  p.p_head = s + lay.p_head; p.ss_a = s + lay.ss_a; p.ss_m = s + lay.ss_m;
-  p.kc = static_cast<bf16*>(kc);
-  p.vc = static_cast<bf16*>(vc);
-  p.bar = static_cast<unsigned*>(bar);
+  uint8_t* sb = static_cast<uint8_t*>(scratch);
+  auto f32 = [&](long long off) { return reinterpret_cast<float*>(sb + off); };
+  auto b16 = [&](long long off) { return reinterpret_cast<bf16*>(sb + off); };
+  auto u32 = [&](long long off) { return reinterpret_cast<unsigned*>(sb + off); };
+  p.sync = u32(lay.sync);
+  p.bb.h = f32(lay.h);
+  p.ss_a = f32(lay.ss_a); p.ss_m = f32(lay.ss_m); p.xhf = f32(lay.xhf); p.lg = f32(lay.lg);
+  p.xa = b16(lay.xa); p.xm = b16(lay.xm); p.xo = b16(lay.xo); p.xd = b16(lay.xd);
+  p.qb = b16(lay.qb); p.xh = b16(lay.xh); p.kc = b16(lay.kc); p.vc = b16(lay.vc);
+  p.p_qkv = f32(lay.p_qkv); p.p_o = f32(lay.p_o); p.p_gu = f32(lay.p_gu);
+  p.p_down = f32(lay.p_down); p.p_head = f32(lay.p_head);
+  p.f_draw = u32(lay.f_draw); p.f_init = u32(lay.f_init); p.f_qkv = u32(lay.f_qkv);
+  p.f_att = u32(lay.f_att); p.f_o = u32(lay.f_o); p.f_gu = u32(lay.f_gu); p.f_dn = u32(lay.f_dn);
+  p.f_fin = u32(lay.f_fin); p.f_head = u32(lay.f_head);
+  p.t_qkv = u32(lay.t_qkv); p.t_o = u32(lay.t_o); p.t_gu = u32(lay.t_gu);
+  p.t_dn = u32(lay.t_dn); p.t_head = u32(lay.t_head);
   p.stamps = static_cast<unsigned long long*>(stamps);
+  int per_sm = 0;
+  e = cudaFuncSetAttribute(fused_decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_decoder_kernel, BLOCK, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)fused_decoder_kernel, dim3(nb), dim3(NT), args,
+  e = cudaLaunchCooperativeKernel((const void*)fused_decoder_kernel, dim3(sms), dim3(BLOCK), args,
                                   smem, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-const char* fd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* fd_error_string(int code) { return refused_string(code); }
 
 }  // extern "C"

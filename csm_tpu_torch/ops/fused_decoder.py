@@ -288,48 +288,112 @@ def decode_codebooks_reference(
 # The kernel's wrapper
 # ---------------------------------------------------------------------------
 
-_F, _I = ctypes.c_void_p, ctypes.c_int
+_F, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SHAPES = ([_I] * 11, _LL)
 # The C functions of csrc/fused_decoder.cu: (argtypes, restype).
 SIGNATURES = {
-    "fused_decode": ([_F] * 23 + [ctypes.c_longlong] + [_F] * 4 + [_I] * 14 + [ctypes.c_float, _F],
-                     _I),
-    "fd_scratch_floats": ([_I] * 7, ctypes.c_longlong),
+    "fused_decode": ([_F] * 25 + [_LL] * 2 + [_I] * 14 + [ctypes.c_float, _F], _I),
+    "fd_scratch_bytes": _SHAPES,
+    "fd_item_count": _SHAPES,
     "fd_error_string": ([_I], ctypes.c_char_p),
 }
+# Int64 slots a work item takes in the item trace (csrc/bb_step.cuh
+# ``TRACE_SLOTS``): its stage, start, end of its waits, marks inside it (0
+# where it has none), end.
+TRACE_SLOTS = 8
+# Stages of a pass in the traces besides its layers' five each: the input,
+# the final norm, the head, the draws (csrc/fused_decoder.cu ``PASS_EXTRA``).
+PASS_EXTRA = 4
+# The scratch's int32 words that hold the last launch's counters
+# (csrc/fused_decoder.cu ``SYNC_OUT``, four words from there).
+SYNC_OUT = 4
+SYNC_NAMES = ("grid_barriers", "items", "closed_waits", "slot_waits")
+# Logits a thread of the kernel's draw holds (csrc/fused_decoder.cu
+# ``DRAW_VPT``): the head takes at most 256 times as many columns.
+DRAW_VPT = 16
+# Return codes from this one on are arguments the kernel refuses
+# (csrc/bb_step.cuh ``Refused``).
+_REFUSED = 10001
 
 
 def _lib():
     return _build.load(KERNEL, SIGNATURES)
 
 
-# Scratch kept across calls of the same shapes on the same device: the f32
-# buffer the kernel lays out (residual, attention output, split sums), the
-# bf16 K/V scratch and the 4 barrier words.  The kernel writes every value
-# before reading it and re-arms the barrier words itself (bar[0] at each
-# barrier, bar[2] before the first), so they are zeroed once, here.  Calls
-# on one device are ordered by its stream, which the scratch assumes.
+def stage_count(N: int, L: int) -> int:
+    """Stamps a ``stage_ns`` buffer takes: block 0's start, then the end of
+    each stage of the frame's list (the c0 draws; per position the input, per
+    layer QKV, attention, o-proj, gate-up and down, then the final norm, the
+    head and the draws)."""
+    return 2 + N * (5 * L + PASS_EXTRA)
+
+
+def _check_shapes(B, N, D, Fi, nq, nkv, hd, Va_pad, head_kind):
+    """ValueError naming the limit the kernel does not take."""
+    if not 1 <= B <= MAX_CHUNKED_B:
+        raise ValueError(f"fused_decode_codebooks kernel: unsupported B={B}, outside "
+                         f"1..{MAX_CHUNKED_B}")
+    if not 2 <= N <= 64:
+        raise ValueError(f"fused_decode_codebooks kernel: {N} codebooks, outside 2..64 positions")
+    if nkv <= 0 or nq % nkv or nq // nkv > 8:
+        raise ValueError(f"fused_decode_codebooks kernel: heads {nq}/{nkv} (a GQA group of at "
+                         "most 8)")
+    if hd not in (16, 32, 64, 128):
+        raise ValueError(f"fused_decode_codebooks kernel: head_dim {hd} (16, 32, 64 or 128: "
+                         "heads tile 128 columns)")
+    if D % 128 or Va_pad % 128 or Fi % 128:
+        raise ValueError(f"fused_decode_codebooks kernel: D={D}, F={Fi} and the head's {Va_pad} "
+                         "columns must be multiples of 128")
+    if Va_pad > DRAW_VPT * 256:
+        raise ValueError(f"fused_decode_codebooks kernel: {Va_pad} head columns, more than "
+                         f"{DRAW_VPT * 256} (a draw's 256 threads hold {DRAW_VPT} logits each)")
+    if (nq * hd) % 128:
+        raise ValueError(f"fused_decode_codebooks kernel: nq*hd={nq * hd} must be a multiple of "
+                         "128 (whole weight chunks)")
+    if head_kind is None:
+        raise ValueError("fused_decode_codebooks kernel: the head must be bf16, int8 or f32")
+
+
+# Scratch kept across calls of the same shapes and head on the same device:
+# one byte buffer the kernel lays out (residual, operands, logits, K/V rows,
+# split partials, per-item flags, tickets, counters), zeroed once here, and
+# the launch epoch.  Flags are stamped with the epoch, tickets and counters
+# re-arm themselves, so nothing is cleared between launches.  Calls on one
+# device are ordered by its stream, which the scratch assumes.
 _SCRATCH: dict = {}
-_last_bar: list = []
+_last: list = []
 
 
-def _scratch(lib, dev, B, D, L, nq, nkv, hd, Fi, Va_pad, NP):
-    key = (dev, B, D, L, nq, nkv, hd, Fi, Va_pad, NP)
-    sc = _SCRATCH.get(key)
-    if sc is None:
-        n = lib.fd_scratch_floats(B, D, nq, nkv, hd, Fi, Va_pad)
-        kc = torch.empty((L, B, nkv, NP, hd), dtype=torch.bfloat16, device=dev)
-        sc = (torch.empty((n,), dtype=torch.float32, device=dev), kc, torch.empty_like(kc),
-              torch.zeros((4,), dtype=torch.int32, device=dev))
-        _SCRATCH[key] = sc
-    return sc
-
-
-def last_grid_barriers() -> int:
-    """Grid barriers the last kernel launch took (its own count, bar[3];
-    reads the card, so it waits for the launch)."""
-    if not _last_bar:
+def last_sync_counts() -> dict:
+    """The last launch's own counts: ``grid_barriers`` (the kernel has none),
+    ``items``, ``closed_waits`` (items whose waits found a flag still closed)
+    and ``slot_waits`` (the weight producers' waits for a free ring slot).
+    Reads the card, so it waits for the launch; nothing on the serving path
+    calls it."""
+    if not _last:
         raise RuntimeError("fused_decode_codebooks has not launched its kernel")
-    return int(_last_bar[0][3].item())
+    words = _last[0][4 * SYNC_OUT:8 * SYNC_OUT].view(torch.int32).tolist()
+    return {k: int(v) & 0xFFFFFFFF for k, v in zip(SYNC_NAMES, words)}
+
+
+def item_count(qdec: dict, config: CSMConfig, B: int) -> int:
+    """Work items of one frame at batch ``B``, as the kernel counts them: an
+    ``item_ns`` trace takes :data:`TRACE_SLOTS` int64 for each."""
+    n = _lib().fd_item_count(*_shape_args(qdec, config, B))
+    if n < 0:
+        raise ValueError(f"item_count: {_lib().fd_error_string(-n).decode()}")
+    return n
+
+
+def _shape_args(qdec: dict, config: CSMConfig, B: int):
+    """``(B, N, D, L, nq, nkv, hd, F, Va, Va_pad, head_kind)`` as the C side
+    takes them."""
+    dcfg = config.decoder
+    head = qdec["audio_head"]
+    return (B, config.audio_num_codebooks, dcfg.hidden_size, qdec["w"]["wqkv"].shape[0],
+            dcfg.num_attention_heads, dcfg.num_key_value_heads, dcfg.head_dim,
+            dcfg.intermediate_size, config.audio_vocab_size, head.shape[-1],
+            _HEAD_KINDS.get(head.dtype, -1))
 
 
 def fused_decode_codebooks(
@@ -344,38 +408,43 @@ def fused_decode_codebooks(
     forced: Optional[torch.Tensor] = None,
     return_logits: bool = False,
     stage_ns: Optional[torch.Tensor] = None,
+    item_ns: Optional[torch.Tensor] = None,
 ):
     """All codebooks of one frame, ``[B, N]`` int64.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (and raise on what it does
     not take).  ``temperature [B]``, ``topk [B]`` in [1, Va]; ``forced [B, N]``
     pins tokens (-1 draws).  ``return_logits`` also returns the logits
     ``[N, B, Va_pad]`` and the draws before forcing ``[B, N]``.  ``stage_ns``
-    (an int64 CUDA tensor of at least ``last_grid_barriers() + 1`` elements)
-    receives the kernel's trace: block 0's clock in ns at its start and as
-    it leaves each grid barrier.
+    (int64 on the kernel's device, :func:`stage_count` elements) receives
+    block 0's clock in ns at its start and as it leaves each stage of the
+    frame's list; ``item_ns`` (int64, :data:`TRACE_SLOTS` per item of
+    :func:`item_count`) each work item's stage, start, end of its waits, marks
+    inside it and end.  :func:`last_sync_counts` reads the launch's counters.
     ``fused_decode_codebooks.launches`` counts kernel launches."""
     B, dev = x0.shape[0], x0.device
     N = config.audio_num_codebooks
     if forced is None:
         forced = torch.full((B, N), -1, dtype=torch.long, device=dev)
-    if dev.type == "cpu":
+    if dev.type == "cpu" and stage_ns is None and item_ns is None:
         samples, logits, draws = decode_codebooks_reference(
             qdec, config, x0, c0_logits, gumbel, temperature, topk, greedy, forced)
         return (samples, logits, draws) if return_logits else samples
     if dev.type != "cuda":
-        raise ValueError(f"fused_decode_codebooks: unsupported device {dev}")
-    dcfg = config.decoder
-    Va = config.audio_vocab_size
-    L, D, Fi = qdec["w"]["wqkv"].shape[0], dcfg.hidden_size, dcfg.intermediate_size
-    nq, nkv, hd = dcfg.num_attention_heads, dcfg.num_key_value_heads, dcfg.head_dim
-    head = qdec["audio_head"]
-    Va_pad = head.shape[-1]
-    head_kind = _HEAD_KINDS.get(head.dtype)
+        raise ValueError(f"fused_decode_codebooks: unsupported device {dev} (stage_ns and "
+                         "item_ns need the kernel)")
+    shapes = _shape_args(qdec, config, B)
+    _, _, D, L, nq, nkv, hd, Fi, Va, Va_pad, head_kind = shapes
     emb = qdec["proj_emb"]
-    if not 1 <= B <= MAX_CHUNKED_B:
-        raise ValueError(f"fused_decode_codebooks kernel: unsupported B={B}")
-    if head_kind is None or emb.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"fused_decode_codebooks kernel: head {head.dtype}, embeddings {emb.dtype}")
+    _check_shapes(B, N, D, Fi, nq, nkv, hd, Va_pad, None if head_kind < 0 else head_kind)
+    if emb.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_decode_codebooks kernel: embeddings {emb.dtype} (bf16 or f32)")
+    if stage_ns is not None and (stage_ns.device != dev or stage_ns.dtype != torch.int64
+                                 or stage_ns.numel() < stage_count(N, L)):
+        raise ValueError(f"stage_ns: an int64 tensor on the kernel's device of at least "
+                         f"{stage_count(N, L)} elements")
+    if item_ns is not None and (item_ns.device != dev or item_ns.dtype != torch.int64):
+        raise ValueError(f"item_ns: an int64 tensor on the kernel's device, {TRACE_SLOTS} per "
+                         "work item")
     f32, i32 = torch.float32, torch.int32
 
     def c(x, dtype):
@@ -385,14 +454,18 @@ def fused_decode_codebooks(
     x0, c0 = c(x0, f32), c(bf16_round(c0_logits), f32)
     gum = c(gumbel, f32)
     w, s = qdec["w"], qdec["s"]
+    head = qdec["audio_head"]
     hs = qdec.get("head_scale", torch.ones((1,), dtype=f32, device=dev))
-    if stage_ns is not None and (stage_ns.device != dev or stage_ns.dtype != torch.int64
-                                 or stage_ns.numel() < (N - 1) * (5 * L + 1) + 1):
-        raise ValueError("stage_ns: an int64 tensor on the kernel's device, one element more "
-                         "than the kernel's grid barriers")
     lib = _lib()
-    NP = N
-    scratch, kc, vc, bar = _scratch(lib, dev, B, D, L, nq, nkv, hd, Fi, Va_pad, NP)
+    key = (dev, *shapes)
+    sc = _SCRATCH.get(key)
+    if sc is None:
+        n = lib.fd_scratch_bytes(*shapes)
+        if n < 0:
+            raise ValueError(f"fused_decode_codebooks kernel: {lib.fd_error_string(-n).decode()}")
+        sc = _SCRATCH[key] = [torch.zeros((n,), dtype=torch.uint8, device=dev), 0]
+    sc[1] = (sc[1] + 1) & 0xFFFFFFFF
+    epoch = sc[1] - (1 << 32) if sc[1] >= 1 << 31 else sc[1]
     samples = torch.empty((B, N), dtype=i32, device=dev)
     out_logits = torch.empty((N, B, Va_pad), dtype=f32, device=dev) if return_logits else None
     out_draws = torch.empty((B, N), dtype=i32, device=dev) if return_logits else None
@@ -407,14 +480,17 @@ def fused_decode_codebooks(
             s["wqkv"].data_ptr(), s["wo"].data_ptr(), s["w_gu"].data_ptr(), s["w_down"].data_ptr(),
             qdec["cos"].data_ptr(), qdec["sin"].data_ptr(), head.data_ptr(), hs.data_ptr(),
             gum.data_ptr(), emb.data_ptr(), samples.data_ptr(), ptr(out_logits), ptr(out_draws),
-            scratch.data_ptr(), scratch.numel(), kc.data_ptr(), vc.data_ptr(), bar.data_ptr(),
-            ptr(stage_ns),
-            B, N, Va, Va_pad, D, L, nq, nkv, hd, Fi, NP, int(greedy), head_kind,
-            int(emb.dtype == torch.bfloat16), float(dcfg.rms_norm_eps), _build.stream_handle(dev),
+            sc[0].data_ptr(), ptr(stage_ns), ptr(item_ns), sc[0].numel(),
+            0 if item_ns is None else item_ns.numel(),
+            B, N, Va, Va_pad, D, L, nq, nkv, hd, Fi, int(greedy), head_kind,
+            int(emb.dtype == torch.bfloat16), epoch, float(config.decoder.rms_norm_eps),
+            _build.stream_handle(dev),
         )
+    if rc >= _REFUSED:
+        raise ValueError(f"fused_decode_codebooks kernel (B={B}): {lib.fd_error_string(rc).decode()}")
     if rc != 0:
         raise RuntimeError(f"fused_decode_codebooks launch failed: {lib.fd_error_string(rc).decode()}")
-    _last_bar[:] = [bar]
+    _last[:] = [sc[0]]
     fused_decode_codebooks.launches += 1
     samples = samples.long()
     if return_logits:

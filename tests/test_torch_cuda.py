@@ -887,8 +887,15 @@ def test_bf16_dq_shards_equal_the_unsharded_launch(cuda, hd, nq, nkv, shards):
 # RMS.
 FUSED_FULL_RMS_TOL = 2e-2
 FUSED_LAYER_LIMITS = {"share": 0.3, "rel_rms": 3e-3}
-# 1 + 31 passes x 21 barriers, the redesign's budget (the old kernel: 1,055).
-FUSED_MAX_BARRIERS = 652
+
+
+def _check_sync_counts(qdec, cfg, B):
+    """The last launch's own counters: no grid barrier, every item of the
+    frame's list run once, at most that many items that found a flag closed."""
+    counts = fd.last_sync_counts()
+    assert counts["grid_barriers"] == 0, counts
+    assert counts["items"] == fd.item_count(qdec, cfg, B), counts
+    assert 0 <= counts["closed_waits"] <= counts["items"], counts
 
 
 def _fused_bundle(model, cfg, head: str) -> dict:
@@ -920,8 +927,8 @@ def test_fused_kernel_holds_the_phase5_limits(cuda, B, head):
     """Greedy and sampled, teacher-forced: full-depth logits within
     ``FUSED_FULL_RMS_TOL``, each layer alone within ``FUSED_LAYER_LIMITS``,
     forced tokens passed through, every draw bit-equal to the plain sampler
-    on the kernel's own logits, two launches bitwise equal, at most
-    ``FUSED_MAX_BARRIERS`` grid barriers a frame, and stream 0's logits
+    on the kernel's own logits, two launches bitwise equal, no grid barrier
+    and every item run once by the kernel's own count, and stream 0's logits
     bitwise those of the same stream launched alone."""
     cfg = _config()
     model = CSMModel(cfg, dtype=torch.bfloat16, seed=3, device=cuda)
@@ -938,7 +945,7 @@ def test_fused_kernel_holds_the_phase5_limits(cuda, B, head):
         args = (x0, c0, gum, temp, topk, greedy)
         forced, (samples, lg, draws), ref = _fused_logits(qdec, cfg, args, B)
         torch.cuda.synchronize()
-        assert fd.last_grid_barriers() <= FUSED_MAX_BARRIERS
+        _check_sync_counts(qdec, cfg, B)
         assert torch.equal(samples, forced)
         a, r = lg[..., :Va], ref[1][..., :Va]
         assert torch.isfinite(a).all() and _rel_rms(a, r) <= FUSED_FULL_RMS_TOL
@@ -956,6 +963,97 @@ def test_fused_kernel_holds_the_phase5_limits(cuda, B, head):
             a, r = got[1][..., :Va], want[1][..., :Va]
             assert (a != r).float().mean().item() <= FUSED_LAYER_LIMITS["share"], l
             assert _rel_rms(a, r) <= FUSED_LAYER_LIMITS["rel_rms"], l
+
+
+@pytest.mark.parametrize("head", ["bf16", "int8"])
+def test_fused_kernel_mixed_greedy_rows_and_forced_prefix(cuda, head):
+    """B = 32, every other row greedy (top-1, no noise) and row b's first b %
+    7 codebooks forced: the forced prefix passed through, every draw bit-equal
+    to the sampler on the kernel's logits with its row's settings (greedy rows:
+    the first-index argmax), the logits within ``FUSED_FULL_RMS_TOL`` of the
+    plain version teacher-forced on the kernel's own codes, and the counters
+    as in every launch."""
+    B = 32
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=5, device=cuda)
+    qdec = _fused_bundle(model, cfg, head)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    N, Va = cfg.audio_num_codebooks, cfg.audio_vocab_size
+    last_h = torch.randn((B, cfg.backbone.hidden_size), generator=gen, device=cuda).bfloat16()
+    x0 = (last_h @ model.params["projection"]).float()
+    c0 = (last_h @ model.params["codebook0_head"]).float()
+    greedy_rows = torch.arange(B, device=cuda) % 2 == 0
+    temp, topk, gum = fd.row_params(B, Va, 0.9, 5, fd.build_frame_gumbel(cfg, gen, B, False, cuda),
+                                    greedy_rows)
+    col = torch.arange(N, device=cuda)[None, :]
+    prefix = (torch.arange(B, device=cuda) % 7)[:, None]
+    codes = torch.randint(0, Va, (B, N), generator=gen, device=cuda)
+    forced = torch.where(col < prefix, codes, torch.full_like(codes, -1))
+    args = (x0, c0, gum, temp, topk, False)
+    samples, lg, draws = fd.fused_decode_codebooks(qdec, cfg, *args, forced=forced,
+                                                   return_logits=True)
+    torch.cuda.synchronize()
+    _check_sync_counts(qdec, cfg, B)
+    assert torch.equal(samples[col < prefix], codes[col < prefix])
+    assert torch.equal(samples[col >= prefix], draws[col >= prefix])
+    gp = F.pad(gum, (0, lg.shape[-1] - Va))
+    mine = torch.stack([fd.sample_row(lg[i], gp[i], temp[:, None], topk[:, None], False)
+                        for i in range(N)], dim=1)
+    assert torch.equal(mine, draws)
+    greedy_draws = torch.stack([fd.first_argmax(lg[i]) for i in range(N)], dim=1)
+    assert torch.equal(draws[greedy_rows], greedy_draws[greedy_rows])
+    ref = fd.decode_codebooks_reference(qdec, cfg, *args, samples)
+    a, r = lg[..., :Va], ref[1][..., :Va]
+    assert torch.isfinite(a).all() and _rel_rms(a, r) <= FUSED_FULL_RMS_TOL
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_fused_kernel_is_one_cuda_kernel(cuda, B):
+    """A frame is one launch of ``fused_decoder_kernel``; its stage trace
+    stamps block 0's clock in order through every stage of the list, and its
+    item trace holds every item's stage in list order, the last the last
+    codebook's draws, and its times in order.  A short item trace is refused."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _config()
+    model = CSMModel(cfg, dtype=torch.bfloat16, seed=1, device=cuda)
+    qdec = _fused_bundle(model, cfg, "bf16")
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    N, Va, L = cfg.audio_num_codebooks, cfg.audio_vocab_size, cfg.decoder.num_hidden_layers
+    last_h = torch.randn((B, cfg.backbone.hidden_size), generator=gen, device=cuda).bfloat16()
+    x0 = (last_h @ model.params["projection"]).float()
+    c0 = (last_h @ model.params["codebook0_head"]).float()
+    temp = torch.full((B,), 0.8, device=cuda)
+    topk = torch.full((B,), 5, dtype=torch.int32, device=cuda)
+    gum = fd.build_frame_gumbel(cfg, gen, B, False, cuda)
+    args = (qdec, cfg, x0, c0, gum, temp, topk, False)
+    fd.fused_decode_codebooks(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fd.fused_decode_codebooks(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    assert 0 < sum("fused_decoder_kernel" in n for n in names) <= 4, names
+    stamps = torch.zeros((fd.stage_count(N, L),), dtype=torch.int64, device=cuda)
+    fd.fused_decode_codebooks(*args, stage_ns=stamps)
+    d = stamps.diff()
+    assert stamps[0].item() > 0 and bool((d >= 0).all())
+    S = fd.TRACE_SLOTS
+    items = torch.zeros((S * fd.item_count(qdec, cfg, B),), dtype=torch.int64, device=cuda)
+    fd.fused_decode_codebooks(*args, item_ns=items)
+    rows = items.view(-1, S)
+    assert bool((rows[:, 0].diff() >= 0).all())
+    assert rows[-1, 0].item() == fd.stage_count(N, L) - 2
+    assert bool((rows[:, 1] > 0).all() and (rows[:, 2] >= rows[:, 1]).all()
+                and (rows[:, S - 1] >= rows[:, 2]).all())
+    with pytest.raises(ValueError, match="item trace"):
+        fd.fused_decode_codebooks(*args, item_ns=items[:S])
+    with pytest.raises(ValueError, match="B=33, outside 1..32"):
+        fd.fused_decode_codebooks(qdec, cfg, x0[:1].expand(33, -1), c0[:1].expand(33, -1),
+                                  gum[:, :1].expand(-1, 33, -1), temp[:1].expand(33),
+                                  topk[:1].expand(33), False)
 
 
 # ---------------------------------------------------------------------------
