@@ -9,7 +9,9 @@ every kernel); their losses, the first clipped gradient (from AdamW's first
 moment after one step) and the parameters' change are kept for the check.
 The same object then trains in the window, each step ending in a host read
 of its loss.  After the window the program's state is freed and the
-reference trains the same weights on the same batches for the same steps."""
+reference trains the same weights on the same batches for the same steps.
+The model's config, shapes, reference and FLOPs come from its family
+(``families/<family>.py``)."""
 
 from __future__ import annotations
 
@@ -19,10 +21,10 @@ from types import SimpleNamespace
 
 import torch
 
+from benchmark import spec
 from benchmark import traffic as gen
 from benchmark import trace as tr
 from benchmark import weights, yardstick
-from benchmark.reference import csm as ref_csm
 from benchmark.shapes import leaves
 
 
@@ -56,12 +58,12 @@ def program(cell: dict, seed: int, dev, fault=None):
     its first ``check_steps`` steps; returns ``(step, state, readings)``.
     ``fault`` (the tests' and the control script's seam) maps ``(step_fn,
     state, batch)`` to ``(state, metrics)`` in place of the program's step."""
-    from csm_tpu_torch.config import CSMConfig
     from csm_tpu_torch.train.loop import flatten, make_train_step
 
     conf, t = cell["config"], cell["traffic"]
-    cfg = CSMConfig.from_dict(conf["model"])
-    params = weights.csm_params(cfg, seed, torch.float32, dev)
+    fam = spec.family(conf)
+    cfg = fam.config(conf["model"])
+    params = weights.model_params(fam, cfg, seed, torch.float32, dev)
     state = _opt(conf["train"]).init(params)
     step_fn = make_train_step(cfg, _opt(conf["train"]), max_decoder_frames(t),
                               compute_dtype=torch.bfloat16, remat=True, remat_policy="auto")
@@ -84,7 +86,7 @@ def program(cell: dict, seed: int, dev, fault=None):
             readings["grad"] = {n: float(st[p]["exp_avg"].norm()) / (1 - 0.9) if p in st else 0.0
                                 for n, p in named.items()}
     with torch.no_grad():
-        start = dict(leaves(weights.csm_params(cfg, seed, torch.float32, dev)))
+        start = dict(leaves(weights.model_params(fam, cfg, seed, torch.float32, dev)))
         readings["change"] = {n: float((p - start[n]).norm()) for n, p in named.items()}
     return step, state, readings
 
@@ -93,12 +95,11 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, started: float,
         device: str = "cuda", fault=None, control: bool = False) -> SimpleNamespace:
     """One run of a training cell (``fault``: see :func:`program`;
     ``control`` also reads the control's numbers, ``out.control_checks``)."""
-    from csm_tpu_torch.config import CSMConfig
-
     conf, t = cell["config"], cell["traffic"]
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    cfg = CSMConfig.from_dict(conf["model"])
+    fam = spec.family(conf)
+    cfg = fam.config(conf["model"])
     step, state, readings = program(cell, seed, dev, fault)
     if cuda:
         torch.cuda.synchronize()
@@ -138,10 +139,10 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, started: float,
     out = SimpleNamespace(kind="train", window_s=t1 - t0, sequences=seqs, steps=steps,
                           setup_s=setup_s, spans=spans, trace=None, attempted=seqs, failed=0,
                           span_total_s=sum(spans.get("call.step", [])),
-                          flops=seqs * yardstick.train_sequence_flops(cfg, t["seq_len"], n_dec))
+                          flops=seqs * fam.train_sequence_flops(cfg, t["seq_len"], n_dec))
     if trace and "stop" in traced:
         summary = tr.summarize(prof)
-        work = yardstick.flash_train_work(cfg, t["batch"], t["seq_len"])
+        work = fam.flash_train_work(cfg, t["batch"], t["seq_len"])
         g = summary["groups"]
         bound = sum(g.get(k, [0, 0.0])[0] * yardstick.bound_s(*work[w])
                     for k, w in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
@@ -153,28 +154,30 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, started: float,
     del prof, state, step
     if cuda:
         torch.cuda.empty_cache()
-    ref = reference_readings(cfg, conf, t, seed, dev, straight_through(ref_csm.bf16_round))
+    ref = reference_readings(fam, cfg, conf, t, seed, dev,
+                             straight_through(fam.reference.bf16_round))
     lim = conf["limits"]
     out.checks = [(k, v, lim[k], "<=") for k, v in compare(readings, ref).items()]
     if control:
-        low = reference_readings(cfg, conf, t, seed, dev, straight_through(fp8))
+        low = reference_readings(fam, cfg, conf, t, seed, dev, straight_through(fp8))
         out.control_checks = {"fp8": [(k, v, lim[k], "<=") for k, v in compare(low, ref).items()]}
     out.readings, out.reference = readings, ref
     out.peak = peak
     return out
 
 
-def reference_readings(cfg, conf, t, seed, dev, cast) -> dict:
-    """The reference's losses, pre-clip norms, first clipped gradient and
-    change per leaf after ``check_steps`` steps from the seed's weights."""
+def reference_readings(fam, cfg, conf, t, seed, dev, cast) -> dict:
+    """The family reference's losses, pre-clip norms, first clipped
+    gradient and change per leaf after ``check_steps`` steps from the
+    seed's weights."""
     tc = conf["train"]
     flat = {n: p.requires_grad_(True)
-            for n, p in leaves(weights.csm_params(cfg, seed, torch.float32, dev))}
+            for n, p in leaves(weights.model_params(fam, cfg, seed, torch.float32, dev))}
     batches = [{k: torch.as_tensor(v, device=dev) for k, v in gen.train_batch(cfg, t, seed, i).items()}
                for i in range(t["check_steps"])]
     opt = dict(lr=tc["lr"], total_steps=tc["total_steps"], warmup_steps=tc["warmup_steps"],
                weight_decay=tc["weight_decay"], max_grad_norm=tc["max_grad_norm"])
-    return ref_csm.train_steps(flat, cfg, batches, opt, max_decoder_frames(t), cast)
+    return fam.reference.train_steps(flat, cfg, batches, opt, max_decoder_frames(t), cast)
 
 
 def compare(got: dict, ref: dict) -> dict:

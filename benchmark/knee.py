@@ -42,7 +42,7 @@ def main(argv=None) -> None:
     for rate in (float(r) for r in args.rates.split(",")):
         t = dict(s.t, loop="open", arrivals=args.arrivals, rate_per_s=rate)
         reqs = gen.requests(t, s.cfg, args.seed, args.seconds)
-        win = serve.Window(s.server, reqs, t, tr.Clock())
+        win = serve.Window(s.server, reqs, t, tr.Clock(), s.pids, s.prefix_len)
         half = {}
 
         def at(elapsed, win=win, half=half):
@@ -51,7 +51,7 @@ def main(argv=None) -> None:
 
         win.on_call = at
         win.run(args.seconds)
-        rec = serve.record(win, s.cfg, t, tr.Clock(), 0.0)
+        rec = serve.record(win, s.fam, s.cfg, t, tr.Clock(), 0.0)
         line = {"rate_per_s": rate, "due": sum(r["due"] <= rec.window_s for r in rec.requests),
                 "finished": sum(r["finished"] for r in rec.requests),
                 "queued_half": half.get("queued"), "queued_end": s.server.stats()["queued"],

@@ -1,5 +1,5 @@
 """The backbone step's share of its roofline (%): the summed bounds of its
-launches in the traced steps (``yardstick.bb_work`` at the configuration's
+launches in the traced steps (the family's ``bb_work`` at the configuration's
 weight precision, each launch's batch and readable window slots) over their
 device time under the kernels' exact names (K1 or K1q)."""
 

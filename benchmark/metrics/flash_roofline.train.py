@@ -1,6 +1,6 @@
 """The flash kernels' share of their roofline (%): K3 with its
 log-sum-exp, K5a and K5b in the traced step, their launches' summed bounds
-(``yardstick.flash_train_work``) over their summed device time."""
+(the family's ``flash_train_work``) over their summed device time."""
 
 
 def read(run):

@@ -1,5 +1,5 @@
 """K2's share of its roofline (%): the summed bounds of the fused codebook
-loop's launches in the traced steps (``yardstick.k2_work`` at each launch's
+loop's launches in the traced steps (the family's ``k2_work`` at each launch's
 batch) over their device time under the kernel's exact name."""
 
 

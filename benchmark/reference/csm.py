@@ -192,6 +192,27 @@ def lower_precision(w: dict, tier: str, parts=("prefill", "step", "decoder"),
     return {k: (lower(v, fn) if k in parts else v) for k, v in w.items()}
 
 
+def controls(tier: str) -> tuple:
+    """What the serving check can put in the program's place: ``lower``,
+    the reference one precision step below what the configuration states
+    (int8 for the exact tier; Mimi in TF32); for the exact tier also
+    ``fp8`` and ``drafts``, its int8 decoder without the verify;
+    ``no_topk``, the reference sampling without its top-k filter."""
+    return ("lower", "fp8", "drafts", "no_topk") if tier == "exact" else ("lower", "no_topk")
+
+
+def control_weights(w: dict, tier: str, control: str) -> dict:
+    """The weights ``control`` (one of :func:`controls`) serves in place of
+    the tier's ``w``."""
+    if control == "no_topk":
+        return w
+    if control == "fp8":
+        return lower_precision(w, tier, fn=fp8_dequant)
+    if control == "drafts":
+        return lower_precision(w, tier, parts=("decoder",))
+    return lower_precision(w, tier)
+
+
 # ---------------------------------------------------------------------------
 # The stacks
 # ---------------------------------------------------------------------------
@@ -291,38 +312,6 @@ def served_logits(params: dict, cfg, w: dict, prompt_ids: torch.Tensor,
     dh = decoder_forward(cfg, w["decoder"], x)  # [F, 32, Dd]
     rest = torch.einsum("fcd,cdv->fcv", dh[:, 1:N], w["decoder"]["head"])
     return c0, rest
-
-
-def by_token(c0: torch.Tensor, rest: torch.Tensor) -> torch.Tensor:
-    """``(c0 [F, V], rest [F, 31, V])`` -> ``[F, 32, V]``, one row a served
-    token."""
-    return torch.cat([c0[:, None], rest], dim=1)
-
-
-def gaps_below_best(ref: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``[F, 32]``: by how far each token's reference logit lies below the
-    reference's best at its position (0 where it is the best)."""
-    return ref.max(dim=-1).values - ref.gather(-1, tokens[..., None].long())[..., 0]
-
-
-def gaps_below_topk(ref: torch.Tensor, tokens: torch.Tensor, k: int) -> torch.Tensor:
-    """``[F, 32]``: by how far each token's reference logit lies below the
-    reference's ``k``-th best at its position (0 inside the top ``k``)."""
-    kth = torch.topk(ref, min(k, ref.shape[-1]), dim=-1).values[..., -1]
-    return (kth - ref.gather(-1, tokens[..., None].long())[..., 0]).clamp(min=0)
-
-
-def draw(logits: torch.Tensor, temperature: float, topk: Optional[int],
-         generator: torch.Generator) -> torch.Tensor:
-    """A token a row, as the port's sampler draws it (``modeling_csm``'s
-    recipe): Gumbel-max over ``logits / temperature`` with all but the top
-    ``topk`` (ties kept) left out; ``topk=None`` keeps every token."""
-    x = logits.float() / temperature
-    if topk is not None:
-        kth = torch.topk(x, min(topk, x.shape[-1]), dim=-1).values[..., -1:]
-        x = torch.where(x < kth, torch.full_like(x, -torch.inf), x)
-    e = torch.empty(x.shape, device=x.device).exponential_(generator=generator)
-    return torch.argmax(x - torch.log(e), dim=-1)
 
 
 # ---------------------------------------------------------------------------

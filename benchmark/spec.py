@@ -2,8 +2,9 @@
 names the cell's configuration and traffic; the configuration's file is the
 one its entry names, the traffic is ``traffic/<name>.json``, each metric's
 reader is ``metrics/<name>.py`` (or ``metrics/<prefix>.py``, see
-:func:`reader`) and a traffic's driver is
-``drivers/<kind>.py``.  A new configuration, traffic, cell or metric is new
+:func:`reader`), a traffic's driver is ``drivers/<kind>.py`` and a
+configuration's model family is ``families/<family>.py`` (see
+:func:`family`).  A new configuration, family, traffic, cell or metric is new
 files and new ``BENCHMARK.json`` entries; nothing here changes."""
 
 from __future__ import annotations
@@ -55,6 +56,23 @@ def cell_metrics(bench: dict, name: str, section: str) -> list:
     return [m for m in bench[section] if name in m.get("workloads", [name])]
 
 
+def _load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family(conf: dict):
+    """The model family module of a configuration: ``families/<family>.py``
+    for its ``"family"`` key, ``families/csm.py`` where it has none.  It
+    gives the port's config object, the parameter shapes, the tier's
+    bundles, the plain reference and the model FLOPs (see
+    ``families/csm.py``)."""
+    name = conf.get("family", "csm")
+    return _load(os.path.join(HERE, "families", name + ".py"), f"benchmark_family_{name}")
+
+
 def reader(metric: str):
     """The ``read(run)`` function of ``metrics/<metric>.py``, or, where there
     is no such file, of ``metrics/<part before the first dot>.py``: one
@@ -62,10 +80,7 @@ def reader(metric: str):
     path = os.path.join(HERE, "metrics", metric + ".py")
     if not os.path.exists(path):
         path = os.path.join(HERE, "metrics", metric.split(".", 1)[0] + ".py")
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"benchmark_metric_{metric}").read
 
 
 def driver(kind: str):

@@ -1,6 +1,8 @@
 """Driving ``benchmark/run.py``'s main path on the CPU at a tiny size: the
-look for a card is skipped, the cell's sizes are the tiny ones, the driver
-runs on the CPU, and the printed result line is returned."""
+look for a card is skipped, the cell's sizes are its family's CPU twin and
+small traffic (``tiny.py``), the driver runs on the CPU, and the printed
+result line is returned.  Any cell of ``BENCHMARK.json`` runs so, with no
+entry here."""
 
 import json
 
@@ -8,19 +10,16 @@ from benchmark import run as run_mod
 from benchmark import spec
 from benchmark.tests.tiny import tiny_cell
 
-TINY = {"int4-serve-audio": ("serve-audio", "int4", {}),
-        "int4-batch32-codes": ("batch32-codes", "int4", {}),
-        "bf16-exact-stream": ("single-stream", "exact", {}),
-        "bf16-train-s2048": ("train-s2048", "exact", {})}
-
 
 def run_tiny(monkeypatch, capsys, workload: str, seed: int = 2 ** 31 + 11, seconds: float = 5.0,
-             trace: int = 0, limits: dict = None, **driver_kw) -> dict:
-    traffic, tier, over = TINY[workload]
-    cell = dict(tiny_cell(traffic, tier, **over), name=workload)
+             trace: int = 0, limits: dict = None, bench: dict = None, root: str = None,
+             **driver_kw) -> dict:
+    bench = spec.load_benchmark() if bench is None else bench
+    cell = tiny_cell(workload, bench, root)
     if limits:
         cell["config"]["limits"].update(limits)
-    monkeypatch.setattr(spec, "cell", lambda bench, name: cell)
+    monkeypatch.setattr(spec, "load_benchmark", lambda *a, **k: bench)
+    monkeypatch.setattr(spec, "cell", lambda b, name, *a: cell)
     monkeypatch.setattr(run_mod, "card", lambda chips: "cpu (test)")
     monkeypatch.setattr(run_mod, "power_limit_w", lambda: None)
     drv = spec.driver(cell["traffic"]["kind"])

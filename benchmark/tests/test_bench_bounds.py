@@ -4,8 +4,11 @@ sizes of the port's own bundles at a tiny configuration."""
 import pytest
 import torch
 
+from benchmark import spec
 from benchmark import yardstick as ys
 from benchmark.shapes import csm_shapes, layer_params
+
+csm = spec.family({})  # what a configuration without a "family" key runs
 
 
 def csm1b():
@@ -43,21 +46,21 @@ def test_prefill_flops_equal_the_ports():
 
     cfg = csm1b()
     for S in (128, 512, 2048):
-        assert ys.prefill_flops(cfg, S) == prefill_flops(None, cfg, S)
+        assert csm.prefill_flops(cfg, S) == prefill_flops(None, cfg, S)
     # By hand at S = 128: 2 N S + 2 * 2 * S^2 / 2 * 32 * 64 * 16.
-    assert ys.prefill_flops(cfg, 128) == 2 * 973_144_064 * 128 + 2 * 128 * 128 * 32 * 64 * 16
+    assert csm.prefill_flops(cfg, 128) == 2 * 973_144_064 * 128 + 2 * 128 * 128 * 32 * 64 * 16
 
 
 def test_k2_work_by_hand():
     cfg = csm1b()
     elems = 4 * (1024 * 1536 + 1024 * 1024 + 1024 * 16384 + 8192 * 1024)  # int8, 1 byte each
     scales = 4 * 4 * (1536 + 1024 + 16384 + 1024)
-    b, f = ys.k2_work(cfg, 8, head_bits=16)
+    b, f = csm.k2_work(cfg, 8, head_bits=16)
     want = 31 * (elems + scales) + 31 * 1024 * 2051 * 2 + 31 * 8 * 1024 * 2 + \
         4 * (32 * 8 * 2051 + 8 * 2051 + 8 * 1024 + 16) + 8 * 8 * 32
     assert b == want
     assert f == 2 * 8 * 31 * (elems + 1024 * 2051)
-    b8, _ = ys.k2_work(cfg, 8, head_bits=8)
+    b8, _ = csm.k2_work(cfg, 8, head_bits=8)
     assert b - b8 == 31 * 1024 * 2051 - 31 * 2051 * 4
 
 
@@ -85,7 +88,7 @@ def test_bb_work_matches_the_ports_bundle(bits):
             D * Va + Va * 4
         if bits == 4:
             w += nb(*(qsb["u"][k] for k in fams))
-    b, _ = ys.bb_work(cfg, 1, 64, 0, bits)
+    b, _ = csm.bb_work(cfg, 1, 64, 0, bits)
     L, hd, nkv = cfg.backbone.num_hidden_layers, cfg.backbone.head_dim, \
         cfg.backbone.num_key_value_heads
     io = 4 * (D + 2 * hd + 64 + D + Va) + 2 * 2 * L * nkv * hd
@@ -101,7 +104,7 @@ def test_k2_work_matches_the_ports_bundle():
     qdec = prepare_fused_decoder(init_params(cfg, 0, torch.bfloat16, "cpu"), cfg)
     mats = [qdec["w"][k] for k in ("wqkv", "wo", "w_gu", "w_down")]
     w = 31 * (sum(m.numel() for m in mats) + sum(s.numel() * 4 for s in qdec["s"].values()))
-    b, f = ys.k2_work(cfg, 1)
+    b, f = csm.k2_work(cfg, 1)
     Dd, Va = cfg.decoder.hidden_size, cfg.audio_vocab_size
     assert b == w + 31 * Dd * Va * 2 + 31 * Dd * 2 + 4 * (32 * Va + Va + Dd + 2) + 8 * 32
     assert f == 2 * 31 * (sum(m.numel() for m in mats) + Dd * Va)
@@ -109,7 +112,7 @@ def test_k2_work_matches_the_ports_bundle():
 
 def test_flash_work_by_hand():
     cfg = csm1b()
-    w = ys.flash_train_work(cfg, 1, 2048)
+    w = csm.flash_train_work(cfg, 1, 2048)
     pairs = 2048 * 2049 // 2
     assert w["fwd"][1] == 4 * 64 * 32 * pairs
     assert w["dq"][1] == 6 * 64 * 32 * pairs and w["dkv"][1] == 8 * 64 * 32 * pairs
@@ -124,13 +127,14 @@ def test_flash_work_by_hand():
 def test_frame_and_train_flops_by_hand():
     cfg = csm1b()
     N_bb, N_dec = 973_144_064, layer_params(cfg.decoder)
-    f = ys.frame_flops(cfg, 100)
+    f = csm.frame_flops(cfg, 100)
     want = 2 * (N_bb + 2048 * 2051 + 2048 * 1024) + 4 * 64 * 32 * 16 * 100 + \
         31 * 2 * (N_dec + 1024 * 2051 + 2048 * 1024) + sum(4 * 128 * 8 * 4 * p for p in range(1, 33))
     assert f == want
-    t = ys.train_sequence_flops(cfg, 2048, 124)
-    fwd = ys.prefill_flops(cfg, 2048) + 2 * 2048 * 2051 * 2048 + 124 * (
-        2 * (N_dec + 2048 * 1024) * 33 + 2 * 1024 * 2051 * 31 + 2 * 2 * 33 * 33 * 8 * 128 * 4 / 2)
+    t = csm.train_sequence_flops(cfg, 2048, 124)
+    fwd = csm.prefill_flops(cfg, 2048) + 2 * 2048 * 2051 * 2048 + 124 * (
+        2 * (N_dec + 2048 * 1024) * 33 + 2 * 1024 * 2051 * 31
+        + 2 * 2 * 33 * 33 * 8 * 128 * 4 / 2)
     assert t == pytest.approx(3 * fwd, rel=1e-12)
     # About 6 N tokens: 1.2e13 a sequence at S = 2048.
     assert 1.1e13 < t < 1.6e13

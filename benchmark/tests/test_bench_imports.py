@@ -1,9 +1,14 @@
 """Nothing the benchmark runs loads JAX or the JAX package, compared by
-whole top-level names (``csm_tpu_torch`` begins with ``csm_tpu``), and the
-references load nothing of the program."""
+whole top-level names (``csm_tpu_torch`` begins with ``csm_tpu``), the
+references load nothing of the program, and the drivers and the weight
+maker reach what is particular to a model only through its family."""
 
+import os
+import re
 import subprocess
 import sys
+
+import pytest
 
 from benchmark import spec
 
@@ -29,10 +34,21 @@ def test_the_harness_and_the_program_load_no_jax():
             "import csm_tpu_torch.serving, csm_tpu_torch.train.loop, csm_tpu_torch.codec\n"
             "from benchmark import spec\n"
             "b = spec.load_benchmark()\n"
-            "[spec.reader(m['name']) for m in b['end_to_end'] + b['per_layer']]")
+            "[spec.reader(m['name']) for m in b['end_to_end'] + b['per_layer']]\n"
+            "[spec.family(spec.cell(b, w['name'])['config']) for w in b['workloads']]")
     assert spec.forbidden_loaded(_modules_after(code)) == []
 
 
 def test_the_references_load_nothing_of_the_program():
     mods = _modules_after("import benchmark.reference.csm, benchmark.reference.mimi")
     assert not [m for m in mods if m.split(".")[0] in ("csm_tpu_torch",) + spec.FORBIDDEN]
+
+
+@pytest.mark.parametrize("path", ["drivers/serve.py", "drivers/train.py", "weights.py",
+                                  "knee.py", "control.py"])
+def test_model_specifics_come_through_the_family(path):
+    with open(os.path.join(spec.HERE, path)) as f:
+        src = f.read()
+    assert not re.search(r"reference(\.| import )csm|csm_shapes|CSMConfig|"
+                         r"yardstick\.(prefill|frame|train_sequence|request)_flops|"
+                         r"flash_train_work\(cfg", src.replace("fam.flash_train_work(cfg", ""))

@@ -1,17 +1,19 @@
-"""The run's pieces on the CPU at ``CSMConfig.tiny()``: every cell's loop,
-its records, its metrics and its check, through ``run.py``'s main path.
-The tiny model runs the kernels' plain versions, so its readings sit far
-below the full-size limits; no number here is a device metric."""
+"""The run's pieces on the CPU at each cell's CPU twin (its family's
+``tiny``): every cell of ``BENCHMARK.json``, traced and not, its loop, its
+records, its metrics and its check, through ``run.py``'s main path.  The
+tiny model runs the kernels' plain versions, so its readings sit far below
+the full-size limits; no number here is a device metric."""
 
+import numpy as np
 import pytest
 
 from benchmark import spec
 from benchmark.tests.harness import run_tiny
 
 
-@pytest.mark.parametrize("workload,trace", [("int4-serve-audio", 0), ("int4-serve-audio", 1),
-                                            ("int4-batch32-codes", 0), ("bf16-exact-stream", 1),
-                                            ("bf16-train-s2048", 0), ("bf16-train-s2048", 1)])
+@pytest.mark.parametrize("workload,trace", [(w["name"], trace)
+                                            for w in spec.load_benchmark()["workloads"]
+                                            for trace in (0, 1)])
 def test_a_run_prints_its_metrics_and_is_correct(monkeypatch, capsys, workload, trace):
     out = run_tiny(monkeypatch, capsys, workload, trace=trace)
     assert list(out) == ["correct", "attempted", "failed", "metrics", "device"] + \
@@ -33,3 +35,28 @@ def test_a_run_prints_its_metrics_and_is_correct(monkeypatch, capsys, workload, 
         assert out["device"]["window_s"] > 0
     for v in out["checks"].values():
         assert v["value"] <= v["limit"] if v["must_be"] == "<=" else v["value"] >= v["limit"]
+    if spec.cell(bench, workload)["traffic"].get("prefixes"):
+        assert out["checks"]["prefix_admits"]["value"] == 1.0
+
+
+def test_the_same_sessions_sent_whole():
+    """``"prefix_cache": false``: each turn is submitted as prefix plus
+    continuation, no prefix is registered, and the run is judged on the same
+    whole contexts; its FLOPs count every prefill whole."""
+    import time
+
+    from benchmark.drivers import serve
+    from benchmark.tests.tiny import tiny_cell
+
+    cached = tiny_cell("int4-serve-prefix")
+    whole = tiny_cell("int4-serve-prefix")
+    whole["traffic"]["prefix_cache"] = False
+    s = serve.setup(whole, 5, 2.0, False, "cpu")
+    assert s.pids == [] and {r.prefix for r in s.reqs} == {None}
+    c = serve.setup(cached, 5, 2.0, False, "cpu")
+    for r, q in zip(s.reqs, c.reqs):
+        assert np.array_equal(r.ids, np.concatenate([c.prefixes[q.prefix][0], q.ids]))
+    res = serve.run(whole, 5, 2.0, False, time.perf_counter(), device="cpu")
+    checks = {n: (v, lim, op) for n, v, lim, op in res.checks}
+    assert "prefix_admits" not in checks and "prefix_gap_share" not in checks
+    assert all(v <= lim if op == "<=" else v >= lim for v, lim, op in checks.values())

@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import traffic, weights
+from benchmark import spec, traffic, weights
 from benchmark.reference import csm as ref
 from benchmark.reference import mimi as ref_mimi
 from benchmark.shapes import leaves
+
+CSM = spec.family({})
 
 
 @pytest.fixture(scope="module")
@@ -20,7 +22,7 @@ def setup():
     from csm_tpu_torch.config import CSMConfig
 
     cfg = CSMConfig.tiny(max_seq_len=128)
-    params = weights.csm_params(cfg, 3, torch.float32, "cpu")
+    params = weights.model_params(CSM, cfg, 3, torch.float32, "cpu")
     rng = np.random.default_rng(0)
     t = {"turn_frames": 16, "text_frames": 2, "audio_codes": cfg.audio_vocab_size}
     ids, mask = traffic.prompt(cfg, 20, t, rng)
@@ -80,7 +82,7 @@ def test_loss_and_gradients_equal_the_ports(setup):
     t = {"accum": 1, "batch": 1, "seq_len": 96, "n_text": 16, "amortization_ratio": 16}
     b = {k: torch.as_tensor(v) for k, v in traffic.train_batch(cfg, t, 4, 0).items()}
     mine = {n: p.clone().requires_grad_(True)
-            for n, p in leaves(weights.csm_params(cfg, 9, torch.float32, "cpu"))}
+            for n, p in leaves(weights.model_params(CSM, cfg, 9, torch.float32, "cpu"))}
     ports = {n: p.detach().clone().requires_grad_(True) for n, p in mine.items()}
     from benchmark.shapes import nest
 
@@ -103,7 +105,7 @@ def test_bundles_worked_out_again_equal_the_ports():
     from csm_tpu_torch.ops.fused_decoder import prepare_fused_decoder
 
     cfg = CSMConfig.tiny()
-    params = weights.csm_params(cfg, 2, torch.bfloat16, "cpu")
+    params = weights.model_params(CSM, cfg, 2, torch.bfloat16, "cpu")
     w = ref.serve_weights(params, cfg, "int4")
     q4 = prepare_streamed_backbone(params, cfg, bits=4)
     for fam in ref.FAMILIES:

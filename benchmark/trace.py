@@ -74,10 +74,11 @@ def timed_method(clock: Clock, owner, attr: str, name: str):
 
 class Launches:
     """While on, the shapes of every K2 and backbone-step launch, in order,
-    for their bounds; installed around the kernels' Python wrappers."""
+    for their bounds (the model family's ``k2_work`` and ``bb_work``);
+    installed around the kernels' Python wrappers."""
 
-    def __init__(self, cfg):
-        self.cfg = cfg
+    def __init__(self, fam, cfg):
+        self.fam, self.cfg = fam, cfg
         self.on = False
         self.k2, self.bb = [], []
 
@@ -108,11 +109,12 @@ class Launches:
 
     def bounds_s(self) -> dict:
         """Summed least times of the recorded launches, by group."""
-        k2 = sum(yardstick.bound_s(*yardstick.k2_work(self.cfg, B, hb)) for B, hb in self.k2)
+        fam, cfg = self.fam, self.cfg
+        k2 = sum(yardstick.bound_s(*fam.k2_work(cfg, B, hb)) for B, hb in self.k2)
         bb = 0.0
         for B, W, bias, bits in self.bb:
             usable = int((bias >= 0).sum())
-            bb += yardstick.bound_s(*yardstick.bb_work(self.cfg, B, W, usable, bits))
+            bb += yardstick.bound_s(*fam.bb_work(cfg, B, W, usable, bits))
         return {"k2": k2, "bb": bb}
 
 

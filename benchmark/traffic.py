@@ -4,13 +4,23 @@ traffic file's parameters and the run's seed.
 Every seed gets the same work: lengths are a fixed stratified set of
 quantiles of the stated distribution (and open-loop arrivals at even gaps,
 or at the stratified gaps of a Poisson process), and the seed sets only their order, the token content,
-which requests are greedy and each request's sampling noise."""
+which requests are greedy, which prefix each continues and each request's
+sampling noise.
+
+A serving mix with ``sessions`` sends conversations, not single requests,
+as Sesame's ``run_csm.py`` generates one: the speakers' prompt segments
+(``prefix_segments``, each ``[text frames, audio frames]``; the mix
+registers ``prefixes`` such sets before the window, the prefix cache), then
+``session_turns`` turns, each turn's request the whole conversation after
+the prefix (every earlier turn's text and spoken audio) and its own text.
+A session continues one prefix, an equal share of the sessions each."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 from statistics import NormalDist
+from typing import Optional
 
 import numpy as np
 
@@ -24,6 +34,8 @@ class Request:
     budget: int  # frames to generate
     greedy: bool
     seed: int  # its sampling noise
+    prefix: Optional[int] = None  # the registered prefix it continues
+    session: Optional[int] = None  # the conversation it is a turn of
 
 
 def quantiles(dist: dict, n: int) -> np.ndarray:
@@ -44,13 +56,27 @@ def prompt(cfg, S: int, t: dict, rng) -> tuple:
     """A ``[S, 33]`` conversation context: turns of ``turn_frames`` frames,
     each ``text_frames`` text frames then audio frames, ending on the text of
     the turn to be spoken."""
-    W, N = cfg.audio_num_codebooks + 1, cfg.audio_num_codebooks
-    ids = np.zeros((S, W), np.int64)
-    mask = np.zeros((S, W), np.float32)
     text = np.zeros(S, bool)
     for start in range(0, S, t["turn_frames"]):
         text[start:start + t["text_frames"]] = True
     text[-t["text_frames"]:] = True
+    return frames(cfg, text, t, rng)
+
+
+def segments(cfg, parts, t: dict, rng) -> tuple:
+    """A context of segments laid out as CSM's generator lays out each
+    ``Segment``: for each ``(text, audio)`` its text tokens, one a frame,
+    then its audio frames."""
+    return frames(cfg, np.concatenate([np.arange(a + b) < a for a, b in parts]), t, rng)
+
+
+def frames(cfg, text: np.ndarray, t: dict, rng) -> tuple:
+    """``(ids, mask)``, ``[S, 33]``: a text token drawn from the seed on each
+    frame where ``text`` holds, 32 audio codes on each other frame."""
+    S = len(text)
+    W, N = cfg.audio_num_codebooks + 1, cfg.audio_num_codebooks
+    ids = np.zeros((S, W), np.int64)
+    mask = np.zeros((S, W), np.float32)
     ids[text, N] = rng.integers(1, cfg.text_vocab_size, int(text.sum()))
     mask[text, N] = 1.0
     ids[~text, :N] = rng.integers(0, t["audio_codes"], (int((~text).sum()), N))
@@ -64,7 +90,10 @@ def requests(t: dict, cfg, seed: int, seconds: float) -> list:
     Poisson process in the seed's order (``"poisson"``).  Closed loop:
     ``pool`` requests, each sent when a client is free (``pool`` is about
     the number a window runs, so every seed runs the same mix; the driver
-    starts over in the same order where a window runs more)."""
+    starts over in the same order where a window runs more).  With
+    ``sessions``: see :func:`session_requests`."""
+    if t.get("sessions"):
+        return session_requests(t, cfg, seed)
     rng = np.random.default_rng(seed)
     if t["loop"] == "open":
         n = int(round(t["rate_per_s"] * seconds))
@@ -92,6 +121,58 @@ def requests(t: dict, cfg, seed: int, seconds: float) -> list:
         out.append(Request(i, float(due[i]), ids, mask, int(budgets[i]), bool(greedy[i]),
                            int(seeds[i])))
     return out
+
+
+def session_requests(t: dict, cfg, seed: int) -> list:
+    """A closed loop's ``sessions`` conversations of ``session_turns`` turns,
+    in the seed's order, turn by turn.  Turn ``k``'s request is the
+    conversation after the prefix: turns ``0..k-1``'s text and audio, then
+    its own text; it asks for its response's frames.  The audio of an
+    earlier turn is its response's length of codes drawn from the seed, not
+    the codes the server spoke, so the inputs do not depend on the program.
+    Every seed gets the same text and response lengths, in its own order."""
+    if t["loop"] != "closed":
+        raise ValueError("sessions are sent in a closed loop")
+    rng = np.random.default_rng(seed)
+    n_s, turns = t["sessions"], t["session_turns"]
+    n = n_s * turns
+    texts = rng.permutation(quantiles(t["turn_text_frames"], n))
+    budgets = rng.permutation(quantiles(t["response_frames"], n))
+    greedy = np.zeros(n, bool)
+    greedy[rng.permutation(n)[:int(round(t["greedy_share"] * n))]] = True
+    seeds = rng.integers(0, 2 ** 62, n)
+    which = rng.permutation(np.arange(n_s) % t["prefixes"])
+    out = []
+    for s in range(n_s):
+        i = np.arange(s * turns, (s + 1) * turns)
+        ids, mask = segments(cfg, list(zip(texts[i], budgets[i])), t, rng)
+        ends = np.cumsum(texts[i] + budgets[i]) - budgets[i]
+        for k, j in enumerate(i):
+            out.append(Request(int(j), 0.0, ids[:ends[k]], mask[:ends[k]], int(budgets[j]),
+                               bool(greedy[j]), int(seeds[j]), int(which[s]), s))
+    return out
+
+
+def chains(reqs: list) -> list:
+    """The requests in the order a closed loop's client sends them: a
+    session's turns one after another, a request of no session alone."""
+    out, by = [], {}
+    for r in reqs:
+        if r.session is None:
+            out.append([r])
+        elif r.session in by:
+            by[r.session].append(r)
+        else:
+            by[r.session] = [r]
+            out.append(by[r.session])
+    return out
+
+
+def prefixes(t: dict, cfg, seed: int) -> list:
+    """The ``(ids, mask)`` of each of the mix's ``prefixes`` shared prefixes,
+    the ``prefix_segments`` drawn from the seed (none where it has none)."""
+    rng = np.random.default_rng([seed, 4])
+    return [segments(cfg, t["prefix_segments"], t, rng) for _ in range(t.get("prefixes", 0))]
 
 
 def train_batch(cfg, t: dict, seed: int, step: int) -> dict:

@@ -1,7 +1,8 @@
 """Weights made on the device from the run's seed, in the type they are
 served or trained in: one ``torch.Generator`` on the card, one draw for all
-the drawn leaves of a tree, each leaf a view of it.  Linear and embedding
-weights ``N(0, 0.02)`` and norms 1, as the port's ``init_params``; Mimi's
+the drawn leaves of a tree, each leaf a view of it.  The model's leaves as
+its family's ``shapes`` lists them (for CSM: linear and embedding weights
+``N(0, 0.02)`` and norms 1, as the port's ``init_params``); Mimi's
 codebooks ``N(0, 1)``, layer norms and layer scales at their real init, as
 its ``random_mimi_params``.  The same seed gives the same values, so the
 reference remakes what the program was given."""
@@ -13,10 +14,10 @@ import math
 import torch
 
 from benchmark.reference import mimi as ref_mimi
-from benchmark.shapes import csm_shapes, is_norm, leaves, nest
+from benchmark.shapes import nest
 
 # Offsets of the generator streams, so the model and the codec draw apart.
-_CSM_STREAM, _MIMI_STREAM = 0x5EED, 0xC0DEC
+_MODEL_STREAM, _MIMI_STREAM = 0x5EED, 0xC0DEC
 
 
 def _generator(seed: int, stream: int, device) -> torch.Generator:
@@ -42,10 +43,10 @@ def _fill(shapes: list, gen, dtype, device) -> dict:
     return out
 
 
-def csm_params(cfg, seed: int, dtype, device) -> dict:
-    """The CSM parameter tree in the port's layout."""
-    shapes = [(p, s, None if is_norm(p) else 0.02, 1.0) for p, s in leaves(csm_shapes(cfg))]
-    return nest(_fill(shapes, _generator(seed, _CSM_STREAM, device), dtype, device))
+def model_params(family, cfg, seed: int, dtype, device) -> dict:
+    """The model's parameter tree in the port's layout, from its family's
+    ``shapes`` (a module of ``families/``)."""
+    return nest(_fill(family.shapes(cfg), _generator(seed, _MODEL_STREAM, device), dtype, device))
 
 
 def mimi_decoder_params(cfg, seed: int, device) -> dict:
