@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (csm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --hybrid   # phase 17 alone
 
 Phases, each printed as it runs; any failure exits non-zero:
 
-1. the card's name and power limit, then the kernels built from the five
+1. the card's name and power limit, then the kernels built from the six
    sources in ``csm_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together); every instantiation of the bf16 K3, K5a and K5b must hold
    HGMMA (wgmma) instructions (``cuobjdump -sass``), the scalar kernels
@@ -150,11 +151,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    14's tokenizer stand-in and a 24 kHz context clip; and
    ``dryrun_multichip(4)`` on four ranks sharing ``cuda:0``.
 
+17. (run after phase 12) the hybrid backbone, CSM on Granite-4.0-H-Micro
+   at its published widths: the Mamba-2 mixer step kernel against its plain
+   version at B = 1, 8 and 32 (bf16 activations and states; conv state
+   bitwise, output and state gates, a zeroed state as the control), its
+   times beside its bound; then a random bf16 model with the K2 bundle
+   through ``generate`` (B = 1 and 8) and a ``CSMServer`` whose steps
+   replay a CUDA graph, the kernel's launch counter set to 0 before each
+   (one launch a mixer a step), and three graphed steps under
+   ``torch.profiler`` whose device trace must hold the kernel 36 times a
+   step.  ``python3 chip_smoke.py --hybrid`` runs this phase alone (after
+   building the three kernels it runs), its record in
+   ``chiprun_out/chip_smoke_hybrid.json``.
+
 Phases 12 and 14 each also read Mimi once with ``cudnn.allow_tf32`` at
 torch's default (True): streamed vs offline PCM, and card vs CPU codes,
 against their phase's gate.
 
-Phases 7-10 and 12-16 print their seconds.
+Phases 7-10 and 12-17 print their seconds.
 
 The full record of the run goes to ``chiprun_out/chip_smoke.json``.
 
@@ -180,7 +194,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # tensor cores; fp32 outside them.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-KERNELS = ("flash_fwd", "flash_bwd", "bb_decode", "bb_decode_q", "fused_decoder")
+KERNELS = ("flash_fwd", "flash_bwd", "bb_decode", "bb_decode_q", "fused_decoder", "ssm_step")
+# What phase 17 alone (``--hybrid``) builds: K3 for the attention layers'
+# prefill, K2 and the mixer step.
+HYBRID_KERNELS = ("flash_fwd", "fused_decoder", "ssm_step")
 
 
 FAILURES = []
@@ -3686,6 +3703,217 @@ def last_modules(model, cfg, e2e: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the hybrid backbone (Granite-4.0-H-Micro) and its mixer step
+# ---------------------------------------------------------------------------
+
+SSM_BATCHES = (1, 8, 32)
+
+
+def granite_config():
+    """CSM on Granite-4.0-H-Micro's backbone at its published widths."""
+    from csm_tpu_torch import CSMConfig
+    from csm_tpu_torch.config import HybridConfig
+
+    return CSMConfig.from_dict(dict(CSMConfig().to_dict(), text_vocab_size=100352,
+                                    backbone_config=HybridConfig().to_dict()))
+
+
+def ssm_bound(c, B: int):
+    """The least time of one mixer step launch at batch ``B`` (bf16): each
+    stream's state read and written once, its ``in_proj`` row read, its conv
+    state read and written, the layer's conv and per-head parameters read
+    once, the f32 gated output written; its operations (5 a state element,
+    the conv's 4 multiply-adds a channel) at the fp32 rate it computes in."""
+    H, P, N = c.mamba_n_heads, c.mamba_d_head, c.mamba_d_state
+    K, C = c.mamba_d_conv, c.conv_dim
+    n_bytes = (2 * (2 * B * H * P * N + B * c.in_proj_dim + 2 * B * (K - 1) * C + C * K + C
+                    + 3 * H) + 4 * B * c.mamba_inner)
+    return bound_ms(n_bytes, 5 * B * H * P * N + 2 * K * B * C, "float32")
+
+
+def check_ssm(c, B: int, gen) -> dict:
+    """The mixer step kernel against its plain version at the published
+    widths, bf16 activations, parameters and states, three consecutive
+    launches each from the plain version's states: the conv state bitwise,
+    the gated output within 1e-4 of its largest value (the two differ by the
+    order of float32 sums), the state within one bf16 step at its largest
+    value (2^-7 of it: a float32 sum may round to the other side); the
+    control, the plain version from a zeroed state (a state lost between
+    frames), must break the output's gate.  Then times beside the bound and
+    the plain version."""
+    import torch
+
+    from csm_tpu_torch.ops import ssm
+
+    dev, H, C = "cuda", c.mamba_n_heads, c.conv_dim
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), H, device=dev))
+    lp = {"conv_w": randn(C, c.mamba_d_conv, scale=0.5), "conv_b": randn(C, scale=0.1),
+          "dt_bias": (dt + torch.log(-torch.expm1(-dt))).to(bf),
+          "A_log": torch.log(torch.linspace(1, 16, H, device=dev)).to(bf),
+          "D": torch.ones((H,), device=dev, dtype=bf)}
+    conv = randn(B, c.mamba_d_conv - 1, C)
+    st = randn(B, H, c.mamba_d_head, c.mamba_d_state, scale=0.5)
+    y_err = s_err = ctrl = 0.0
+    conv_equal = True
+    for _ in range(3):
+        z = randn(B, c.in_proj_dim)
+        conv_k, st_k, conv0 = conv.clone(), st.clone(), conv.clone()
+        want = ssm.ssm_step_reference(z, conv, st, lp, c)
+        got = ssm.ssm_step(z, conv_k, st_k, lp, c)
+        lost = ssm.ssm_step_reference(z, conv0, torch.zeros_like(st), lp, c)
+        torch.cuda.synchronize()
+        top = want.abs().max().item()
+        y_err = max(y_err, (got - want).abs().max().item() / top)
+        s_err = max(s_err, (st_k.float() - st.float()).abs().max().item()
+                    / st.float().abs().max().item())
+        ctrl = max(ctrl, (lost - want).abs().max().item() / top)
+        conv_equal &= torch.equal(conv_k, conv)
+    check(conv_equal, f"ssm_step B={B}: the conv state differs from the plain version's")
+    check(y_err <= 1e-4, f"ssm_step B={B}: output error {y_err:.3g} over 1e-4")
+    check(s_err <= 2 ** -7, f"ssm_step B={B}: state error {s_err:.3g} over one bf16 step")
+    check(ctrl > 1e-2, f"ssm_step B={B}: the zeroed-state control {ctrl:.3g} passes the gate")
+    z = randn(B, c.in_proj_dim)
+    ms = cuda_ms(lambda: ssm.ssm_step(z, conv, st, lp, c), iters=50)
+    plain = cuda_ms(lambda: ssm.ssm_step_reference(z, conv, st, lp, c), iters=10)
+    bound, by = ssm_bound(c, B)
+    log(f"ssm_step B={B}: output err {y_err:.3g} (control {ctrl:.3g}), state err {s_err:.3g}, "
+        f"conv state bitwise {conv_equal}; {ms * 1e3:.1f} us (bound {bound * 1e3:.1f} us by "
+        f"{by}, plain {plain * 1e3:.1f} us)")
+    return dict(err=y_err, state_err=s_err, control_err=ctrl, ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"B={B}, 64 heads x 64 x 128 state, one group, bf16")
+
+
+def hybrid_prompts(cfg, B: int, S: int, seed: int):
+    """``[B, S, 33]`` prompts with no padding (a hybrid prompt's pads go
+    after its frames)."""
+    import numpy as np
+
+    rows = [prompt(cfg, 1, S, seed + b) for b in range(B)]
+    return np.concatenate([r[0] for r in rows]), np.concatenate([r[1] for r in rows])
+
+
+def hybrid_end_to_end() -> dict:
+    """A random bf16 Granite-backbone CSM (seed 0) with the cell's K2 bundle
+    (int8 decoder, bf16 head): greedy ``generate`` of 16 frames at B = 1 and
+    8 from 64-frame prompts, then a greedy ``CSMServer`` (8 slots, window
+    256, 12 requests of 20-120 frames for 8-24 frames, its steps replayed as
+    a CUDA graph after the first few), each with ``ssm_step.launches`` set
+    to 0 just before it: one launch a mixer a backbone step.  Then three
+    graphed server steps under ``torch.profiler``: its device trace holds
+    the replayed kernel under its name, 36 a step."""
+    import numpy as np
+    import torch
+
+    from csm_tpu_torch.models import csm, hybrid
+    from csm_tpu_torch.ops.fused_decoder import prepare_fused_decoder
+    from csm_tpu_torch.ops.ssm import ssm_step
+    from csm_tpu_torch.generation import generate
+    from csm_tpu_torch.serving import CSMServer
+
+    cfg = granite_config()
+    mixers = len(cfg.backbone.mamba_layers)
+    t0 = time.perf_counter()
+    params = csm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    qdec = prepare_fused_decoder(params, cfg, head_bits=16)
+    log(f"random Granite-backbone CSM bf16 + K2 bundle in {time.perf_counter() - t0:.1f} s")
+    real_step, steps = hybrid.step, [0]
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return real_step(*a, **k)
+
+    hybrid.step = counted
+    out = {}
+    try:
+        for B in (1, 8):
+            ids, mask = hybrid_prompts(cfg, B, 64, seed=170 + B)
+            generate(params, cfg, ids, mask, max_new_frames=2, greedy=True,
+                     stop_on_all_zeros=False, qdec=qdec)
+            torch.cuda.synchronize()
+            steps[0] = ssm_step.launches = 0
+            t0 = time.perf_counter()
+            frames = generate(params, cfg, ids, mask, max_new_frames=16, greedy=True,
+                              stop_on_all_zeros=False, qdec=qdec)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(frames.shape == (B, 16, 32), f"hybrid generate B={B}: frames {frames.shape}")
+            check(steps[0] == 15 and ssm_step.launches == mixers * steps[0],
+                  f"hybrid generate B={B}: {ssm_step.launches} mixer launches over {steps[0]} "
+                  f"steps, want {mixers} a step over 15")
+            out[f"generate_B{B}"] = dict(launches=ssm_step.launches, steps=steps[0],
+                                         frames_per_s=B * 16 / dt)
+            log(f"hybrid generate B={B}: 16 frames in {dt:.2f} s, {ssm_step.launches} mixer "
+                f"launches over {steps[0]} steps")
+        rng = np.random.default_rng(17)
+        server = CSMServer(params, cfg, n_slots=8, window=256, greedy=True, qdec=qdec)
+        steps[0] = ssm_step.launches = 0
+        t0 = time.perf_counter()
+        for i in range(12):
+            ids, mask = hybrid_prompts(cfg, 1, int(rng.integers(20, 121)), seed=180 + i)
+            server.submit(ids, mask, max_new_frames=int(rng.integers(8, 25)))
+        server.run_until_idle()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = server.stats()
+        check(st["completed"] == 12, f"hybrid server: {st['completed']} of 12 requests done")
+        check(steps[0] > 0 and ssm_step.launches == mixers * steps[0],
+              f"hybrid server: {ssm_step.launches} mixer launches over {steps[0]} steps")
+        check(len(hybrid._CAPTURED) == 1, "hybrid server: its step was never captured")
+        out["serve"] = dict(launches=ssm_step.launches, steps=steps[0],
+                            frames=st["frames_emitted"], seconds=dt)
+        log(f"hybrid server: 12 requests, {st['frames_emitted']} frames in {dt:.2f} s, "
+            f"{ssm_step.launches} mixer launches over {steps[0]} steps (graphed)")
+        from torch.profiler import ProfilerActivity, profile
+
+        ids, mask = hybrid_prompts(cfg, 1, 40, seed=199)
+        for i in range(8):
+            server.submit(ids, mask, max_new_frames=40)
+        for _ in range(4):
+            server.step()
+        torch.cuda.synchronize()
+        launches0 = ssm_step.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                server.step()
+            torch.cuda.synchronize()
+        traced = sum(e.count for e in prof.key_averages() if "ssm_step_kernel" in e.key)
+        check(traced == 3 * mixers == ssm_step.launches - launches0,
+              f"hybrid server traced: {traced} ssm_step_kernel records over 3 graphed steps "
+              f"({ssm_step.launches - launches0} counted), want {3 * mixers}")
+        out["traced_replays"] = traced
+        log(f"hybrid server traced: {traced} ssm_step_kernel records in 3 graphed steps")
+        server.run_until_idle()
+        out["serve"]["launches_all"] = ssm_step.launches
+    finally:
+        hybrid.step = real_step
+    return out
+
+
+def hybrid_backbone(gen) -> dict:
+    """Phase 17: the mixer step kernel at B = 1, 8 and 32, then the hybrid
+    backbone end to end; the kernel's row of the ``kernels`` line."""
+    t0 = time.perf_counter()
+    c = granite_config().backbone
+    ssm = {B: check_ssm(c, B, gen) for B in SSM_BATCHES}
+    e2e = hybrid_end_to_end()
+    log(f"phase 17 (the hybrid backbone) in {time.perf_counter() - t0:.1f} s")
+    launches = dict(generate=sum(e2e[f"generate_B{B}"]["launches"] for B in (1, 8)),
+                    serve=e2e["serve"]["launches_all"])
+    return dict(readings=ssm, e2e=e2e, row=dict(
+        name="ssm_step", route="cuda", source="csm_tpu_torch/csrc/ssm_step.cu",
+        replaces="none (the JAX package runs a Llama backbone only)", r=ssm[32],
+        launches=sum(launches.values()), launches_by_path=launches,
+        by_batch={B: dict(ms=r["ms"], bound_ms=r["bound_ms"], err=r["err"],
+                          state_err=r["state_err"]) for B, r in ssm.items()}))
+
+
 def main() -> int:
     import torch
 
@@ -3767,6 +3995,10 @@ def main() -> int:
     results["tf32_pcm"] = tf32_pcm_reading(codec, cfg)
     log(f"phase 12 (serving) in {time.perf_counter() - t0:.1f} s")
     del codec
+    torch.cuda.empty_cache()
+    hyb = hybrid_backbone(gen)
+    results["hybrid"] = {"e2e": hyb["e2e"], **{f"ssm_step_B{B}": r
+                                               for B, r in hyb["readings"].items()}}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     results["last_modules"] = lm = last_modules(loaded, cfg, results["e2e"])
@@ -3896,6 +4128,7 @@ def main() -> int:
                                    serve=s4["fused_decoder"], **last_paths("fused_decoder")),
              sync_counts=fused[1]["gates"]["head16_sampled"]["sync_counts"],
              hmma=hgmma["fused_decoder_kernel"]),
+        hyb["row"],
     ]
     kernels = []
     for row in rows:
@@ -3930,5 +4163,50 @@ def main() -> int:
     return 0
 
 
+def main_hybrid() -> int:
+    """Phase 17 alone (``--hybrid``): the card's line, the three kernels it
+    runs built, the mixer step kernel's checks and the hybrid backbone end
+    to end; its record in ``chiprun_out/chip_smoke_hybrid.json``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from csm_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    t0 = time.perf_counter()
+    _build.build(HYBRID_KERNELS)
+    log(f"built {', '.join(HYBRID_KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    hyb = hybrid_backbone(gen)
+    row = hyb["row"]
+    r = row.pop("r")
+    kernels = [dict(**row, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    shape=r["shape"])]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_hybrid.json"), "w") as f:
+        json.dump({"kernels": kernels, "failures": FAILURES, "e2e": hyb["e2e"],
+                   "readings": {str(B): v for B, v in hyb["readings"].items()}, "card": smi,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+    if FAILURES:
+        print(f"{len(FAILURES)} check(s) failed:\n" + "\n".join(FAILURES), file=sys.stderr,
+              flush=True)
+        return 1
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_hybrid() if sys.argv[1:] == ["--hybrid"] else main())

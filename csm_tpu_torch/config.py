@@ -12,13 +12,17 @@ dict-or-object constructor and the same derived overrides (backbone
 
 Implemented as plain frozen dataclasses (hashable, so they can key caches)
 rather than HF ``PretrainedConfig`` objects.
+
+The backbone may also be a hybrid state-space stack (:class:`HybridConfig`,
+HF ``GraniteMoeHybrid``: Mamba-2 mixers beside position-free attention
+layers), chosen by ``backbone_config.model_type == "granitemoehybrid"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +96,148 @@ class LlamaConfig:
         return cls(rope_scaling=scaling, **{k: v for k, v in d.items() if k in known})
 
 
+HYBRID_MODEL_TYPE = "granitemoehybrid"
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Shape of a hybrid Mamba-2 / attention stack (HF ``GraniteMoeHybrid``
+    without experts; defaults are ``ibm-granite/granite-4.0-h-micro``): 40
+    layers at hidden 2048, ``layer_types`` naming each a ``"mamba"`` mixer or
+    an ``"attention"`` block (GQA 32 / 8 heads of 64, no position embedding,
+    scores scaled by ``attention_multiplier``), each followed by a SwiGLU MLP
+    of ``shared_intermediate_size``.  A mixer's ``in_proj`` gives ``z``
+    (``mamba_expand * hidden``), ``xBC`` (that plus two ``n_groups *
+    d_state`` blocks) and ``dt`` (``mamba_n_heads``); a causal depthwise conv
+    of width ``mamba_d_conv`` runs over ``xBC``.  μP multipliers: the input
+    embeddings times ``embedding_multiplier``, every residual branch times
+    ``residual_multiplier``, the logits over ``logits_scaling``."""
+
+    vocab_size: int = 100352
+    hidden_size: int = 2048
+    intermediate_size: int = 8192
+    shared_intermediate_size: int = 8192
+    num_hidden_layers: int = 40
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 131072
+    rms_norm_eps: float = 1e-5
+    layer_types: Tuple[str, ...] = tuple(
+        "attention" if i % 10 == 5 else "mamba" for i in range(40))
+    mamba_n_heads: int = 64
+    mamba_d_head: int = 64
+    mamba_d_state: int = 128
+    mamba_n_groups: int = 1
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_chunk_size: int = 256
+    mamba_conv_bias: bool = True
+    mamba_proj_bias: bool = False
+    attention_bias: bool = False
+    attention_multiplier: float = 0.015625
+    embedding_multiplier: float = 12.0
+    residual_multiplier: float = 0.22
+    logits_scaling: float = 8.0
+    position_embedding_type: str = "nope"
+
+    model_type = HYBRID_MODEL_TYPE
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if len(self.layer_types) != self.num_hidden_layers or \
+                set(self.layer_types) - {"mamba", "attention"}:
+            raise ValueError(f"layer_types must name {self.num_hidden_layers} layers, each "
+                             f"'mamba' or 'attention'; got {self.layer_types}")
+        if self.position_embedding_type != "nope":
+            raise ValueError("only position-free attention (position_embedding_type 'nope') "
+                             "is supported")
+        if self.attention_bias or self.mamba_proj_bias:
+            raise ValueError("attention and in/out projection biases are not supported")
+        if self.mamba_n_heads * self.mamba_d_head != self.mamba_inner:
+            raise ValueError(f"mamba_n_heads * mamba_d_head ({self.mamba_n_heads} * "
+                             f"{self.mamba_d_head}) must equal mamba_expand * hidden_size "
+                             f"({self.mamba_inner})")
+        if self.mamba_n_heads % self.mamba_n_groups:
+            raise ValueError("mamba_n_groups must divide mamba_n_heads")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def num_query_groups(self) -> int:
+        return self.num_attention_heads // self.num_key_value_heads
+
+    @property
+    def mamba_inner(self) -> int:
+        """Channels of ``x`` and ``z``: ``mamba_expand * hidden_size``."""
+        return self.mamba_expand * self.hidden_size
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of ``xBC``, the conv's input."""
+        return self.mamba_inner + 2 * self.mamba_n_groups * self.mamba_d_state
+
+    @property
+    def in_proj_dim(self) -> int:
+        """Columns of ``in_proj``: ``z``, ``xBC`` and ``dt``."""
+        return self.mamba_inner + self.conv_dim + self.mamba_n_heads
+
+    @property
+    def mamba_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "mamba")
+
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "attention")
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["layer_types"] = list(self.layer_types)
+        d["model_type"] = self.model_type
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "HybridConfig":
+        """From HF ``config.json`` keys (those that say nothing of the
+        shape ignored); refuses what the port does not run: experts, another
+        activation or norm."""
+        if d.get("num_local_experts", 0) or d.get("num_experts_per_tok", 0):
+            raise ValueError("a hybrid backbone with experts is not supported")
+        if d.get("hidden_act", "silu") != "silu" or \
+                d.get("normalization_function", "rmsnorm") != "rmsnorm":
+            raise ValueError("a hybrid backbone runs SiLU MLPs and RMSNorm")
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in dict(d).items() if k in known})
+
+    @classmethod
+    def tiny(cls, **overrides) -> "HybridConfig":
+        """One whole period of the published pattern (five mixers, an
+        attention layer, four mixers) at tiny widths, with a chunk of 8 so
+        a short prompt crosses chunk edges."""
+        kwargs = dict(hidden_size=64, intermediate_size=128, shared_intermediate_size=128,
+                      num_hidden_layers=10, num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=64,
+                      layer_types=tuple("attention" if i == 5 else "mamba" for i in range(10)),
+                      mamba_n_heads=8, mamba_d_head=16, mamba_d_state=16, mamba_chunk_size=8,
+                      attention_multiplier=1.0 / 16)
+        kwargs.update(overrides)
+        return cls(**kwargs)
+
+
+def backbone_from_dict(d: Mapping[str, Any]):
+    """A backbone config by its ``model_type``: ``"granitemoehybrid"`` gives
+    a :class:`HybridConfig`, anything else a :class:`LlamaConfig`."""
+    if d.get("model_type") == HYBRID_MODEL_TYPE:
+        return HybridConfig.from_dict(d)
+    return LlamaConfig.from_dict(d)
+
+
+def is_hybrid(config) -> bool:
+    """Whether a CSM config's backbone is a hybrid state-space stack."""
+    return isinstance(config.backbone, HybridConfig)
+
+
 def _default_backbone() -> LlamaConfig:
     return LlamaConfig()
 
@@ -130,7 +276,8 @@ class CSMConfig:
     audio_vocab_size: int = 2051
     audio_num_codebooks: int = 32
     max_seq_len: int = 2048
-    backbone: LlamaConfig = dataclasses.field(default_factory=_default_backbone)
+    backbone: Union[LlamaConfig, HybridConfig] = dataclasses.field(
+        default_factory=_default_backbone)
     decoder: LlamaConfig = dataclasses.field(default_factory=_default_decoder)
 
     def __post_init__(self):
@@ -196,7 +343,7 @@ class CSMConfig:
             if k in d:
                 kwargs[k] = d[k]
         return cls(
-            backbone=LlamaConfig.from_dict(backbone) if backbone else _default_backbone(),
+            backbone=backbone_from_dict(backbone) if backbone else _default_backbone(),
             decoder=LlamaConfig.from_dict(decoder) if decoder else _default_decoder(),
             **kwargs,
         )
@@ -245,3 +392,8 @@ class CSMConfig:
         )
         kwargs.update(overrides)
         return cls(**kwargs)
+
+    @classmethod
+    def tiny_hybrid(cls, **overrides) -> "CSMConfig":
+        """:meth:`tiny` with :meth:`HybridConfig.tiny` as its backbone."""
+        return cls.tiny(**{"backbone": HybridConfig.tiny(), **overrides})

@@ -28,12 +28,13 @@ The kernel bundles hold whole weights: under a model mesh they raise.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from csm_tpu_torch.config import CSMConfig
+from csm_tpu_torch.config import CSMConfig, is_hybrid
 from csm_tpu_torch.models import csm, llama
 from csm_tpu_torch.models.llama import KVCache
 from csm_tpu_torch.ops.fused_decoder import MAX_CHUNKED_B, build_frame_gumbel, decode_frame_fused
@@ -172,7 +173,8 @@ def generate_frame(
 
     ``true_len``: the real frame count of a right-padded prompt; the cache
     index (an int or a per-stream ``[B]`` tensor) is pinned at its start
-    plus ``true_len``, so later steps overwrite the bucket padding.
+    plus ``true_len``, so later steps overwrite the bucket padding (a
+    hybrid backbone's recurrent states never take the padding in).
     ``qbb`` / ``qsb`` select the backbone step's tier, ``qdec`` /
     ``specdec`` the codebook loop's; ``temperature`` / ``topk`` may be
     per-row and ``greedy_rows`` marks deterministic rows
@@ -188,7 +190,7 @@ def generate_frame(
     new_cache = out.cache
     if new_cache is not None and true_len is not None:
         start = cache.index if cache is not None else 0
-        new_cache = KVCache(new_cache.k, new_cache.v, new_cache.valid, start + true_len)
+        new_cache = dataclasses.replace(new_cache, index=start + true_len)
     with span("csm.gen.codebooks", device=True, B=B):
         samples = decode_frame(
             params, config, out.last_hidden_state, out.logits,
@@ -253,9 +255,9 @@ def generate_compiled(
         cache_len = min(config.max_seq_len, S + max_new_frames)
         cache_len = ((cache_len + 127) // 128) * 128
     dtype = params["backbone"]["final_norm"].dtype
-    cache = KVCache.create(config.backbone, B, cache_len, dtype=dtype, device=dev,
-                           num_kv_heads=llama.local_heads(params["backbone"]["layers"],
-                                                          config.backbone)[1])
+    kv_heads = None if is_hybrid(config) else llama.local_heads(params["backbone"]["layers"],
+                                                                config.backbone)[1]
+    cache = csm.new_cache(config, B, cache_len, dtype=dtype, device=dev, num_kv_heads=kv_heads)
     sample_kw = dict(temperature=temperature, topk=topk, greedy=greedy, generator=generator,
                      qdec=qdec, specdec=specdec, mesh=mesh)
     out = generate_frame(

@@ -46,8 +46,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from csm_tpu_torch.config import CSMConfig
-from csm_tpu_torch.models import llama
+from csm_tpu_torch.config import CSMConfig, is_hybrid
+from csm_tpu_torch.models import hybrid, llama
 from csm_tpu_torch.models.llama import NEG_INF, KVCache, write_rows
 from csm_tpu_torch.ops.attention import flash_eligible, sp_flash_eligible
 from csm_tpu_torch.ops.rope import compute_rope_table, gather_rope
@@ -86,8 +86,10 @@ def init_params(config: CSMConfig, seed: int = 0, dtype=torch.float32, device=No
     def normal(shape):
         return llama.normal_(shape, gen, device, dtype)
 
+    backbone = (hybrid.init_params if is_hybrid(config) else llama.init_params)(
+        config.backbone, gen, device, dtype)
     return {
-        "backbone": llama.init_params(config.backbone, gen, device, dtype),
+        "backbone": backbone,
         "decoder": llama.init_params(config.decoder, gen, device, dtype),
         "text_embeddings": normal((config.text_vocab_size, D)),
         "audio_embeddings": normal((config.audio_embedding_rows, D)),
@@ -95,6 +97,19 @@ def init_params(config: CSMConfig, seed: int = 0, dtype=torch.float32, device=No
         "codebook0_head": normal((D, Va)),
         "audio_head": normal((config.audio_num_codebooks - 1, Dd, Va)),
     }
+
+
+def new_cache(config: CSMConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+              num_kv_heads: Optional[int] = None):
+    """An empty backbone cache of ``max_len`` slots for ``batch`` streams:
+    a :class:`~csm_tpu_torch.models.hybrid.HybridCache` for a hybrid
+    backbone, else a :class:`KVCache` (``num_kv_heads``: this rank's under
+    tensor parallelism)."""
+    if is_hybrid(config):
+        return hybrid.HybridCache.create(config.backbone, batch, max_len, dtype=dtype,
+                                         device=device)
+    return KVCache.create(config.backbone, batch, max_len, dtype=dtype, device=device,
+                          num_kv_heads=num_kv_heads)
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor, rows: int, mesh=None) -> torch.Tensor:
@@ -197,6 +212,9 @@ def backbone_forward(
     docstring)."""
     if mesh is not None and qbb is not None:
         raise ValueError("a mesh runs the unquantized pass only")
+    if is_hybrid(config):
+        return _hybrid_backbone(params, config, input_ids, attention_mask, cache, flash_prefill,
+                                qbb, mesh)
     if cache is None:
         return _backbone_uncached(params, config, input_ids, attention_mask, mesh, qbb,
                                   use_flash, remat, remat_policy), None
@@ -220,6 +238,36 @@ def backbone_forward(
         params["backbone"], bcfg, h, rope_table=rope, positions=positions,
         attn_bias=bias, cache=cache, flash_key_valid=flash_valid, qlayers=qbb, mesh=mesh,
     )
+
+
+def _hybrid_backbone(params, config, input_ids, attention_mask, cache, flash_prefill, qbb,
+                     mesh):
+    """The hybrid backbone (:mod:`csm_tpu_torch.models.hybrid`) over the
+    embedded frames; cached, this chunk's validity is recorded in the window
+    and its attention layers attend the window (the flash kernel for an
+    eligible prefill), as the Llama path does."""
+    if mesh is not None or qbb is not None:
+        raise ValueError("a hybrid backbone runs on one device, without a qbb bundle")
+    B, S, _ = input_ids.shape
+    bcfg = config.backbone
+    h, frame_valid = _embed(params, config, input_ids, attention_mask, None)
+    if cache is None:
+        bias = llama.make_causal_bias(frame_valid, S)
+        hidden, _ = hybrid.forward(params["backbone"], bcfg, h, valid=frame_valid,
+                                   attn_bias=bias)
+        return hidden, None
+    start = cache.index
+    write_rows(cache.valid, frame_valid, start)
+    if flash_prefill and flash_eligible(S, bcfg, params["backbone"]["attn"]):
+        bias, flash_valid = None, cache.valid
+    else:
+        bias, flash_valid = llama.make_causal_bias(cache.valid, S, q_offset=start), None
+    if S == 1:
+        return hybrid.step(params["backbone"], bcfg, h, attn_bias=bias, cache=cache)
+    if flash_valid is not None and isinstance(start, int) and start == 0:
+        return hybrid.prefill(params["backbone"], bcfg, h, valid=frame_valid, cache=cache)
+    return hybrid.forward(params["backbone"], bcfg, h, valid=frame_valid, attn_bias=bias,
+                          cache=cache, flash_key_valid=flash_valid)
 
 
 def _group(mesh, axis: str):
@@ -377,6 +425,9 @@ def forward(
                          "the batch takes none")
     if mesh is not None and mesh.size("model") > 1 and (qsb is not None or qbb is not None):
         raise ValueError(BUNDLES_UNDER_TP)
+    if qsb is not None and is_hybrid(config):
+        raise ValueError("the backbone step kernels (qsb) run Llama backbones: a hybrid "
+                         "backbone steps through its own mixer kernel")
     if (
         qsb is not None and cache is not None and S == 1
         and B <= (MAX_VALIDATED_B if "s" in qsb else MAX_VALIDATED_B_EXACT)
@@ -390,12 +441,18 @@ def forward(
         remat_policy=remat_policy, mesh=mesh,
     )
     head = params["codebook0_head"]
+
+    def c0_head(x):
+        if is_hybrid(config):
+            return (x @ head) / config.backbone.logits_scaling
+        return x @ head
+
     last_h = hidden[:, -1, :] if last_index is None else hidden[:, last_index, :]
-    c0_logits_last = last_h @ head
+    c0_logits_last = c0_head(last_h)
 
     loss = backbone_loss = decoder_loss = None
     backbone_targets = decoder_targets = None
-    c0_all = hidden @ head if (labels is not None or return_all_logits) else None
+    c0_all = c0_head(hidden) if (labels is not None or return_all_logits) else None
 
     if labels is not None:
         backbone_loss, backbone_targets, decoder_loss, decoder_targets = _losses(

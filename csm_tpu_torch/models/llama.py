@@ -139,6 +139,27 @@ class KVCache:
     def max_len(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def batch(self) -> int:
+        return self.valid.shape[0]
+
+    @property
+    def state_bytes(self) -> int:
+        """Bytes of one stream's recurrent state: none in a Llama stack."""
+        return 0
+
+    def clone(self) -> "KVCache":
+        """A copy: a registered prefix's cache stays as it was."""
+        idx = self.index.clone() if isinstance(self.index, torch.Tensor) else self.index
+        return KVCache(self.k.clone(), self.v.clone(), self.valid.clone(), idx)
+
+    def put(self, slot: int, src: "KVCache") -> None:
+        """In place: stream ``slot`` becomes ``src``'s stream 0 (K/V rows and
+        validity; the index is the caller's)."""
+        self.k[:, slot] = src.k[:, 0]
+        self.v[:, slot] = src.v[:, 0]
+        self.valid[slot] = src.valid[0]
+
 
 def write_rows(buf: torch.Tensor, rows: torch.Tensor, start: Index) -> None:
     """In place: ``buf[b, start_b : start_b + S] = rows[b]`` for ``buf

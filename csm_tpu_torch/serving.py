@@ -29,7 +29,6 @@ import torch
 from csm_tpu_torch.config import CSMConfig
 from csm_tpu_torch.generation import _next_frame_inputs, _pad_to_bucket, generate_frame
 from csm_tpu_torch.models import csm
-from csm_tpu_torch.models.llama import KVCache
 from csm_tpu_torch.utils.profiling import span
 
 
@@ -39,20 +38,16 @@ def _window(config: CSMConfig, frames: int) -> int:
     return ((min(frames, config.max_seq_len) + 127) // 128) * 128
 
 
-def _clone(cache: KVCache) -> KVCache:
-    """A copy of a prefix's cache: the port writes caches in place, and a
-    registered prefix must stay as it was for the next request."""
-    return KVCache(cache.k.clone(), cache.v.clone(), cache.valid.clone(), cache.index)
-
-
-def _prefill_prefix(params, config, ids, mask, cache: KVCache, S: int, first: bool) -> KVCache:
+def _prefill_prefix(params, config, ids, mask, cache, S: int, first: bool):
     """The backbone over a prefix's (bucket-padded) frames into ``cache``,
     its index pinned after the ``S`` real frames.  No frame is sampled: a
-    prefix only seeds caches.  ``first``: the prefix starts the cache (the
-    flash prefill); a stacked prefix continues its parent's (masked-bias
-    path: the flash kernel's queries start at position 0)."""
-    out = csm.forward(params, config, ids, mask, cache=cache, last_index=S - 1,
-                      flash_prefill=first)
+    prefix only seeds caches (K/V rows, and a hybrid backbone's recurrent
+    states after the real frames).  ``first``: the prefix starts the cache
+    (the flash prefill); a stacked prefix continues its parent's
+    (masked-bias path: the flash kernel's queries start at position 0)."""
+    with span("csm.serve.register", S=S, state_bytes=cache.state_bytes):
+        out = csm.forward(params, config, ids, mask, cache=cache, last_index=S - 1,
+                          flash_prefill=first)
     return dataclasses.replace(out.cache, index=cache.index + S)
 
 
@@ -76,12 +71,12 @@ class CSMStreamer:
         self._kw = dict(temperature=temperature, topk=topk, greedy=greedy, qdec=qdec,
                         specdec=specdec)
         self._qbb, self._qsb = qbb, qsb
-        self.cache: Optional[KVCache] = None
+        self.cache = None
         self._gen = None
         self._decoder = None
         self._done = None
         self._last_frame = None
-        self._prefixes: dict = {}  # prefix_id -> (seeded KVCache, n_frames)
+        self._prefixes: dict = {}  # prefix_id -> (seeded cache, n_frames)
         self._prefix_seq = 0  # monotonic: ids are never reused after drop_prefix
 
     def _tensors(self, ids, mask):
@@ -96,9 +91,8 @@ class CSMStreamer:
         ids, mask, S, Sb = _pad_to_bucket(np.asarray(input_ids), np.asarray(attention_mask,
                                                                            np.float32))
         dtype = self.params["backbone"]["final_norm"].dtype
-        cache = KVCache.create(self.config.backbone, ids.shape[0],
-                               _window(self.config, Sb + max_new_frames), dtype=dtype,
-                               device=self.device)
+        cache = csm.new_cache(self.config, ids.shape[0], _window(self.config, Sb + max_new_frames),
+                              dtype=dtype, device=self.device)
         cache = _prefill_prefix(self.params, self.config, *self._tensors(ids, mask), cache, S,
                                 first=True)
         pid = f"prefix-{self._prefix_seq}"
@@ -124,17 +118,17 @@ class CSMStreamer:
         B = ids.shape[0]
         if prefix_id is not None:
             pre, S0 = self._prefixes[prefix_id]
-            if pre.k.shape[1] != B:
-                raise ValueError(f"prefix batch ({pre.k.shape[1]}) != session batch ({B})")
+            if pre.batch != B:
+                raise ValueError(f"prefix batch ({pre.batch}) != session batch ({B})")
             if S0 + Sb + max_new_frames > pre.max_len:
                 raise ValueError(
                     f"prefix window ({pre.max_len}) too small for {S0}+{Sb} prompt frames + "
                     f"{max_new_frames} new; register with a larger max_new_frames")
-            cache = _clone(pre)
+            cache = pre.clone()
         else:
             dtype = self.params["backbone"]["final_norm"].dtype
-            cache = KVCache.create(self.config.backbone, B, _window(self.config, Sb + max_new_frames),
-                                   dtype=dtype, device=self.device)
+            cache = csm.new_cache(self.config, B, _window(self.config, Sb + max_new_frames),
+                                  dtype=dtype, device=self.device)
         self._gen = generator
         out = generate_frame(self.params, self.config, *self._tensors(ids, mask), cache=cache,
                              generator=generator, true_len=S, flash_prefill=prefix_id is None,
@@ -218,8 +212,11 @@ class CSMServer:
     K/V rows, validity and write index into its slot of the shared cache, in
     place; the other slots are untouched.
 
-    - The shared ``KVCache`` carries a per-slot ``[n_slots]`` index: each slot
-      sits at its own depth of the static window.
+    - The shared cache (a ``KVCache``, or a hybrid backbone's
+      ``HybridCache`` with each slot's recurrent states beside its K/V rows)
+      carries a per-slot ``[n_slots]`` index: each slot sits at its own depth
+      of the static window.  Admission writes the request's whole state into
+      its slot, so nothing of a freed slot's last request reaches the next.
     - Each request draws from its own generator, with its own temperature /
       top-k / greedy (per-row vectors through every tier; a greedy request in
       a sampled batch is exactly argmax): its tokens equal its solo run.
@@ -253,8 +250,7 @@ class CSMServer:
 
         dtype = params["backbone"]["final_norm"].dtype
         self._dtype = dtype
-        cache = KVCache.create(config.backbone, n_slots, self.window, dtype=dtype,
-                               device=self.device)
+        cache = csm.new_cache(config, n_slots, self.window, dtype=dtype, device=self.device)
         self.cache = dataclasses.replace(
             cache, index=torch.zeros((n_slots,), dtype=torch.long, device=self.device))
         self._last = torch.zeros((n_slots, config.audio_num_codebooks), dtype=torch.long,
@@ -276,7 +272,7 @@ class CSMServer:
         self._next_id = 0
         self.results: dict = {}
         self._frames: dict = {}
-        self._prefixes: dict = {}  # prefix_id -> (seeded batch-1 KVCache, n_frames)
+        self._prefixes: dict = {}  # prefix_id -> (seeded batch-1 cache, n_frames)
         self._prefix_seq = 0  # monotonic: ids are never reused after drop_prefix
         self._n_frames = 0
         self._n_prefills = 0
@@ -341,10 +337,10 @@ class CSMServer:
             raise ValueError(f"parent prefix ({S0}) + bucket ({Sb}) exceed the window "
                              f"({self.window})")
         if parent is None:
-            small = KVCache.create(self.config.backbone, 1, self.window, dtype=self._dtype,
-                                   device=self.device)
+            small = csm.new_cache(self.config, 1, self.window, dtype=self._dtype,
+                                  device=self.device)
         else:
-            small = _clone(parent)
+            small = parent.clone()
         cache = _prefill_prefix(self.params, self.config, *self._tensors(ids, mask), small, S,
                                 first=parent is None)
         pid = f"prefix-{self._prefix_seq}"
@@ -394,7 +390,8 @@ class CSMServer:
     @torch.no_grad()
     def _admit_request(self, slot: int, req: _Request):
         with span("csm.serve.admit", rid=req.rid, slot=slot, S=req.ids.shape[1],
-                  queued_ms=(time.perf_counter_ns() - req.submitted_ns) / 1e6):
+                  queued_ms=(time.perf_counter_ns() - req.submitted_ns) / 1e6,
+                  state_bytes=self.cache.state_bytes):
             self._admit(slot, req)
 
     def _admit(self, slot: int, req: _Request):
@@ -418,10 +415,10 @@ class CSMServer:
             raise ValueError(f"prefix ({S0}) + continuation bucket ({Sb}) exceed the serving "
                              f"window ({self.window}); shorten one of them")
         if pre is None:
-            small = KVCache.create(self.config.backbone, 1, self.window, dtype=self._dtype,
-                                   device=self.device)
+            small = csm.new_cache(self.config, 1, self.window, dtype=self._dtype,
+                                  device=self.device)
         else:
-            small = _clone(pre)
+            small = pre.clone()
         dev = self.device
         out = generate_frame(
             self.params, self.config, *self._tensors(ids, mask), cache=small,
@@ -433,9 +430,7 @@ class CSMServer:
         self._n_prefills += 1
         self._n_prefix_prefills += pre is not None
         # Scatter the prefilled slot into the shared cache, in place.
-        self.cache.k[:, slot] = out.cache.k[:, 0]
-        self.cache.v[:, slot] = out.cache.v[:, 0]
-        self.cache.valid[slot] = out.cache.valid[0]
+        self.cache.put(slot, out.cache)
         self.cache.index[slot] = S0 + S
         self._last[slot] = out.samples[0]
         self._gens[slot] = req.generator

@@ -62,7 +62,8 @@ def trace(log_dir: str, name: Optional[str] = None):
 # The program's spans, outermost layers first.
 SPAN_NAMES = (
     "csm.serve.submit",  # CSMServer.submit; attrs rid
-    "csm.serve.admit",  # CSMServer._admit_request; rid, slot, S, queued_ms
+    "csm.serve.admit",  # CSMServer._admit_request; rid, slot, S, queued_ms, state_bytes
+    "csm.serve.register",  # a prefix's prefill (register_prefix); S, state_bytes
     "csm.serve.step",  # CSMServer.step / step_many; B live slots (step_many: n frames)
     "csm.serve.frame",  # the frame step through its host read; B
     "csm.serve.observe",  # CSMServer._observe; rid, slot
@@ -76,6 +77,9 @@ SPAN_NAMES = (
     "csm.k2.launch",  # one launch of the fused codebook kernel (K2); B
     "csm.bb.launch",  # one launch of a backbone step kernel (K1 / K1q); B
     "csm.llama.layer",  # one layer of a plain Llama pass (prefill, verify, training); l
+    "csm.hybrid.layer",  # one layer of a hybrid backbone pass; l, kind ("mamba" / "attention")
+    "csm.ssm.scan",  # a mixer's chunked scan over a prefill; S, chunks; device
+    "csm.ssm.launch",  # one mixer step: its kernel's launch (its plain version on a CPU); B; device
     "csm.train.step",  # make_train_step's step; accum
     "csm.train.forward",  # one micro-batch's loss, the masters' cast included; device
     "csm.train.backward",  # one micro-batch's backward; device

@@ -15,7 +15,7 @@ import re
 import pytest
 
 from csm_tpu_torch import native
-from csm_tpu_torch.ops import _build, bb_kernel, flash_attention, fused_decoder
+from csm_tpu_torch.ops import _build, bb_kernel, flash_attention, fused_decoder, ssm
 
 _FUNC = re.compile(r"(?:^|\n)(int|long long|const char\*)\s+(\w+)\(([^)]*)\)\s*\{")
 _CTYPES = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_longlong: "long long",
@@ -66,14 +66,15 @@ def _bound_signatures(monkeypatch):
 
     monkeypatch.setattr(_build, "load", fake_load)
     for getter in (flash_attention._fwd_lib, flash_attention._bwd_lib, bb_kernel._lib,
-                   bb_kernel._lib_q, fused_decoder._lib):
+                   bb_kernel._lib_q, fused_decoder._lib, ssm._lib):
         getter()
     return bound
 
 
 def test_every_source_has_c_functions():
     sources = {src for src, _ in C_FUNCTIONS}
-    assert sources == {"flash_fwd", "flash_bwd", "bb_decode", "bb_decode_q", "fused_decoder"}
+    assert sources == {"flash_fwd", "flash_bwd", "bb_decode", "bb_decode_q", "fused_decoder",
+                       "ssm_step"}
 
 
 @pytest.mark.parametrize("source,fn", sorted(C_FUNCTIONS))
